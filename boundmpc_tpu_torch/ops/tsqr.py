@@ -1,0 +1,84 @@
+"""Batched least-squares solve  min_x ||A x + b||_2  for the solver's GN step.
+
+``ls_solve`` is the port of ``boundmpc_tpu/ops/tsqr.py``: on a CUDA float32
+batch it launches the hand-written streaming Householder kernel
+(``csrc/tsqr.cu``); on CPU tensors it runs the plain version
+``ls_solve_reference`` (torch QR + triangular solve, the counterpart of the
+JAX package's ``_ls_solve_xla``).  Nothing else is accepted: a CUDA tensor
+of another dtype, shape or layout raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+_KERNEL = "tsqr"
+
+
+def ls_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: Householder QR per scenario.  A (..., m, n), b (..., m)
+    -> x (..., n)."""
+    Q, R = torch.linalg.qr(A)
+    qtb = (Q.transpose(-1, -2) @ b.unsqueeze(-1))
+    return -torch.linalg.solve_triangular(R, qtb, upper=True).squeeze(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built at first use and loaded once per process."""
+    lib = _build.load(_KERNEL)
+    lib.bmpc_tsqr_ls_solve_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.bmpc_tsqr_ls_solve_f32.restype = ctypes.c_int
+    lib.bmpc_tsqr_max_cols.argtypes = []
+    lib.bmpc_tsqr_max_cols.restype = ctypes.c_int
+    return lib
+
+
+def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if A.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"ls_solve kernel takes float32, got {A.dtype} / {b.dtype}")
+    if b.device != A.device:
+        raise ValueError(f"A on {A.device} but b on {b.device}")
+    if A.dim() != 3 or b.dim() != 2 or b.shape != A.shape[:2]:
+        raise ValueError(f"expected A (B, m, n) and b (B, m), got {tuple(A.shape)} "
+                         f"and {tuple(b.shape)}")
+    if not (A.is_contiguous() and b.is_contiguous()):
+        raise ValueError("ls_solve kernel takes contiguous A and b")
+    lib = _library()
+    B, m, n = A.shape
+    if n + 1 > lib.bmpc_tsqr_max_cols():
+        raise ValueError(f"n + 1 = {n + 1} exceeds the kernel's maximum "
+                         f"{lib.bmpc_tsqr_max_cols()}")
+    x = torch.empty((B, n), dtype=torch.float32, device=A.device)
+    if B == 0:
+        return x
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                         B, m, n, stream)
+    if err != 0:
+        raise RuntimeError(f"tsqr kernel launch failed: CUDA error {err}")
+    ls_solve.launches += 1
+    return x
+
+
+def ls_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = argmin ||A x + b||_2 for a batch: A (B, m, n), b (B, m) -> x (B, n).
+
+    CPU tensors take the plain version; CUDA tensors the kernel (float32,
+    contiguous, n + 1 <= the kernel's maximum) or raise."""
+    if A.device.type == "cpu" and b.device.type == "cpu":
+        return ls_solve_reference(A, b)
+    if A.is_cuda:
+        return _launch(A, b)
+    raise ValueError(f"ls_solve: unsupported device {A.device}")
+
+
+# Kernel launches since the last reset (the main-path coverage check).
+ls_solve.launches = 0
