@@ -36,7 +36,7 @@ def make_prefactor_batch(cfg: ocp.OcpConfig, paths: PathData,
 
 
 def make_batched_tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
-                      dtype=torch.float32, device=None):
+                      dtype=torch.float32, device="cuda"):
     """tick_b(states, paths, weights (B, 15), x_phi_d (B, 3), pref=None) ->
     (states', TickOut batched): one lockstep control tick."""
     engine.full_f32_matmuls()
@@ -50,7 +50,7 @@ def make_batched_tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
 
 
 def make_scanned_ticks(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
-                       n_ticks: int, dtype=torch.float32, device=None):
+                       n_ticks: int, dtype=torch.float32, device="cuda"):
     """``n_ticks`` lockstep batched control periods.  Returns
     fn(states, paths, weights, x_phi_d, pref=None) ->
     (states', (success (K, B), viol (K, B), iters (K, B)))."""

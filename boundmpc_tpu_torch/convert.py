@@ -37,8 +37,9 @@ def _leaf(v, device, dtype) -> torch.Tensor:
     return torch.as_tensor(a, device=device).to(dt)
 
 
-def from_numpy(name: str, d, *, device=None, dtype=torch.float64):
-    """The port's NamedTuple ``name`` from the dict ``d`` of arrays."""
+def from_numpy(name: str, d, *, device="cuda", dtype=torch.float64):
+    """The port's NamedTuple ``name`` from the dict ``d`` of arrays, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     cls = TYPES[name]
     d = _fields(d)
     vals = []

@@ -1,135 +1,406 @@
 // Batched least-squares solve  x = argmin ||A x + b||_2  by streaming
-// Householder QR (TSQR), one thread block per scenario.
+// Householder QR (TSQR), one thread block per scenario, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_tsqr_kernel` (boundmpc_tpu/ops/tsqr.py,
-// launched by `tsqr_ls_solve`).  Same arithmetic: the rows of [A | b] stream
-// in chunks of kRowsPerChunk rows and are folded, column by column, into an
-// (n+1) x (n+1) upper-triangular factor R with the same Householder
-// reflections (sign rule alpha = -norm when R[j,j] >= 0, beta = 2 / v^T v
-// guarded by v^T v > 0, update restricted to columns k >= j).  After the
-// last chunk R holds [R_A | Q^T b] and R_A x = -(Q^T b) is back-substituted.
-// Everything accumulates in float32.
+// Replaces the Pallas TPU kernel `_tsqr_kernel` (boundmpc_tpu/ops/tsqr.py:37,
+// launched by `tsqr_ls_solve`).  Same reflections: the rows of [A | b] are
+// folded chunk by chunk into an (n+1) x (n+1) upper-triangular factor R
+// (sign rule alpha = -norm when R[j,j] >= 0, beta = 2 / v^T v guarded by
+// v^T v > 0, updates restricted to columns k > j), all in float32.  After
+// the last chunk R holds [R_A | Q^T b] and R_A x = -(Q^T b) is
+// back-substituted.  No Gram or Cholesky shortcut: the weighted rows span
+// about 1e12 in weight.
 //
-// What bounds it on an H100: not bytes.  A scenario reads its [A | b] once,
-// about 178 KB at (m, n) = (550, 80), so about 45 MB for a batch of 256.
-// The time goes into the serial chain of n dependent columns per chunk,
-// each needing a block-wide reduction and three block barriers.  The design
-// keeps R and the current chunk resident in shared memory (about 47 KB at
-// n = 80), so device memory is touched once per element, and runs one block
-// per scenario so that up to four blocks share an SM and hide each other's
-// barrier latency.  Tensor cores (wgmma), TMA loads and warp-per-scenario
-// mappings are left for later work.
+// What bounds it on an H100.  At the solver's shape (B, m, n) = (256, 550,
+// 80) the work is 2mn^2 - 2n^3/3 + 4mn - 2n^2 + n^2 = 6.87 MFLOP a scenario,
+// 1.76 GFLOP a batch: 26.2 us at 67 TFLOP/s float32, against 13.6 us for the
+// 45.7 MB of [A | b] and x at 3.35 TB/s.  So the bound is compute.  What
+// holds the kernel back from it is the serial chain of dependent reflectors
+// (each needs the previous one's update of its column, a norm and a
+// reduction across the rows) and the shared-memory traffic of updating the
+// trailing columns after each.
+//
+// The schedule kept (PERF.md has the measurements behind each choice):
+//  * Tall chunks.  The rows per chunk `rc` come from the wrapper
+//    (ops/tsqr.py::chunk_rows): the most rows, a multiple of 64 up to 576,
+//    that fit the 232,448 bytes of dynamic shared memory a block may take.
+//    At n = 80 that is 576, so the solver's m = 550 is one chunk.
+//  * Fixed addresses, no predicates.  The lanes own the rows in pairs (lane
+//    l holds rows 2l + 64q and 2l + 64q + 1), so a column moves with 8-byte
+//    loads and stores, and the rows per lane are a compile-time constant
+//    (fold_chunk<NR>, chosen per chunk; the last chunk is zero-padded to a
+//    multiple of 64 rows): no index division and no predicate in the loop.
+//  * Two reflectors per pass, one barrier per pair (a compact-WY block of
+//    2).  A trailing column takes reflectors j and j + 1 in one load, two
+//    dot products with their shuffle reductions interleaved, and one store;
+//    the cross term c_{j+1} . (v - bw_j c_j) = c_{j+1} . v - bw_j g with
+//    g = c_{j+1} . c_j.  So 40 barriers and 40 passes over the chunk at
+//    n = 80 instead of 80 (and 720 for PR 1's 64-row chunks).
+//  * Look-ahead.  In the step of pair j one warp updates columns j + 2 and
+//    j + 3 first, then forms reflector j + 2, applies it to column j + 3,
+//    forms reflector j + 3 and g, and publishes them, while the other
+//    warps share the remaining trailing columns round-robin (balanced
+//    within one column).  Its chain of dependent reductions is what the
+//    late steps, with few trailing columns, wait for.
+//  * 16 warps.  8 are slower, and 32 leave 64 registers a thread, which
+//    spills.
+//  * Asynchronous row loads.  A chunk arrives by cp.async (4-byte copies:
+//    the row length n is not a multiple of 16 bytes in general, and the
+//    chunk is stored transposed, which rules out TMA's bulk and tensor
+//    copies) straight into the column-major chunk.  With nbuf = 2 the next
+//    chunk loads while this one folds; with nbuf = 1 the chunk is twice as
+//    tall.  The time goes with the number of steps more than with the rows,
+//    so one tall chunk wins and the wrapper takes nbuf = 1; the
+//    double-buffered schedule stays for m beyond a chunk and for comparison.
+//  * Back-substitution on one warp, by columns: lane r holds the right-hand
+//    side of rows r, r+32, ...; x_i is broadcast by a shuffle.
+//  * Tensor cores are not used: a larger compact-WY block in 3xTF32 on
+//    wgmma is the next step (ROADMAP), together with a persistent kernel
+//    that loads the next scenario into retired columns.
+//
+// -DTSQR_PROFILE records clock64() stamps of block 0 (load, each pair step,
+// back-substitution) for bmpc_tsqr_profile; ops/tsqr_bench.py reads them.
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerChunk = 64;
-constexpr int kMaxCols = 128;  // largest supported n + 1
+#ifndef TSQR_WARPS
+#define TSQR_WARPS 16
+#endif
+constexpr int kMaxCols = 128;        // largest supported n + 1
+constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may take
+constexpr int kWarps = TSQR_WARPS;
+constexpr int kThreads = 32 * kWarps;
+static_assert(kWarps >= 2, "one warp looks ahead while the others update");
+constexpr int kMaxRowsPerLane = 18;  // rows per chunk <= 32 * 18 = 576
+constexpr int kMaxDevices = 64;
+
+#ifdef TSQR_PROFILE
+constexpr int kProfSteps = 128;
+constexpr int kProfSlots = 8 + kProfSteps * (kWarps + 1);
+__device__ long long g_prof[kProfSlots];
+__device__ __forceinline__ long long stamp() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+#define TSQR_STAMP(cond, slot)          \
+  do {                                  \
+    if (cond) g_prof[slot] = stamp();   \
+  } while (0)
+#else
+#define TSQR_STAMP(cond, slot) \
+  do {                         \
+  } while (0)
+#endif
+
+// Row stride of R: odd, so that the back-substitution's column reads
+// (lane r reads R[r][i]) hit 32 different banks.
+__host__ __device__ inline int r_stride(int n1) { return n1 | 1; }
+
+// Shared memory: nbuf column-major chunks of n1 columns x (rc + 2) rows (an
+// even stride keeps every column 8-byte aligned), R (n1 x r_stride), and
+// two slots of 8 floats for a pair of reflectors.
+size_t smem_bytes(int n, int rc, int nbuf) {
+  const size_t n1 = static_cast<size_t>(n) + 1;
+  return sizeof(float) * (static_cast<size_t>(nbuf) * n1 * (rc + 2) +
+                          n1 * r_stride(static_cast<int>(n1)) + 16);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-size_t smem_bytes(int n) {
-  const size_t n1 = static_cast<size_t>(n) + 1;
-  // R (n1 x n1), chunk C (rows x n1), dots d (n1), beta*w (n1), x (n)
-  return sizeof(float) * (n1 * n1 + kRowsPerChunk * n1 + 2 * n1 + n);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Start copying rows [r0, r0 + rows) of [A | b] into the chunk C (column k at
+// C + k * ldc) and zero its rows [rows, rows_pad).  One commit group.
+__device__ void issue_chunk(float* C, int ldc, const float* As, const float* bs,
+                            int r0, int rows, int rows_pad, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float* Ac = As + static_cast<size_t>(r0) * n;
+  for (int r = warp; r < rows; r += kWarps)
+    for (int k = lane; k < n; k += 32)
+      cp_async4(C + k * ldc + r, Ac + static_cast<size_t>(r) * n + k);
+  for (int r = threadIdx.x; r < rows; r += kThreads) cp_async4(C + n * ldc + r, bs + r0 + r);
+  for (int k = warp; k <= n; k += kWarps)
+    for (int r = rows + lane; r < rows_pad; r += 32) C[k * ldc + r] = 0.f;
+  cp_async_commit();
+}
+
+// A lane's NR rows of one column, as NR / 2 pairs.
+template <int NR>
+__device__ __forceinline__ void load_col(float2 (&v)[NR / 2], const float* col, int lane) {
+  const float2* p = reinterpret_cast<const float2*>(col) + lane;
+#pragma unroll
+  for (int q = 0; q < NR / 2; ++q) v[q] = p[32 * q];
+}
+template <int NR>
+__device__ __forceinline__ void store_col(const float2 (&v)[NR / 2], float* col, int lane) {
+  float2* p = reinterpret_cast<float2*>(col) + lane;
+#pragma unroll
+  for (int q = 0; q < NR / 2; ++q) p[32 * q] = v[q];
+}
+// Sum over the warp of two lane-local dot products at once (two shuffle
+// chains, interleaved): a.b and c.d.
+template <int NP>
+__device__ __forceinline__ float2 dot2(const float2 (&a)[NP], const float2 (&b)[NP],
+                                       const float2 (&c)[NP], const float2 (&d)[NP]) {
+  float s0 = 0.f, s1 = 0.f, t0 = 0.f, t1 = 0.f;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    s0 = fmaf(a[q].x, b[q].x, s0);
+    s1 = fmaf(a[q].y, b[q].y, s1);
+    t0 = fmaf(c[q].x, d[q].x, t0);
+    t1 = fmaf(c[q].y, d[q].y, t1);
+  }
+  float s = s0 + s1, t = t0 + t1;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    t += __shfl_xor_sync(0xffffffffu, t, o);
+  }
+  return make_float2(s, t);
+}
+
+// Reflector scalars (v0, beta, alpha) for the column whose diagonal entry is
+// rjj and whose chunk part has squared norm sigma, written to out[0..2].
+__device__ __forceinline__ void reflector(float* out, float rjj, float sigma) {
+  const float norm = sqrtf(rjj * rjj + sigma);
+  const float alpha = rjj >= 0.f ? -norm : norm;
+  const float v0 = rjj - alpha;
+  const float vtv = v0 * v0 + sigma;
+  out[0] = v0;
+  out[1] = vtv > 0.f ? 2.f / vtv : 0.f;
+  out[2] = alpha;
+}
+
+// Look-ahead for the pair of reflectors (p, p + 1), p even and < n, by one
+// warp holding columns p and p + 1 in a and b, updated by every earlier
+// reflector (p + 1 <= n always: column n is the b column).
+// Forms reflector p, applies it to column p + 1 (and R[p][p + 1]), forms
+// reflector p + 1 and g = c_{p+1} . c_p, stores both columns and publishes
+// slot = (v0, beta, alpha of p; v0, beta, alpha of p + 1; g).
+template <int NR>
+__device__ __forceinline__ void prepare_pair(float2 (&a)[NR / 2], float2 (&b)[NR / 2],
+                                             float* C, int ldc, float* R, int ldr,
+                                             float* slot, int p, int n, int lane) {
+  constexpr int NP = NR / 2;
+  const float2 ss = dot2<NP>(a, a, a, b);  // (|c_p|^2, c_p . c_{p+1})
+  float ra[3];
+  reflector(ra, R[p * ldr + p], ss.x);
+  const float rpq = R[p * ldr + p + 1];
+  const float bw = ra[1] * fmaf(ra[0], rpq, ss.y);
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    b[q].x = fmaf(-bw, a[q].x, b[q].x);
+    b[q].y = fmaf(-bw, a[q].y, b[q].y);
+  }
+  store_col<NR>(a, C + p * ldc, lane);
+  store_col<NR>(b, C + (p + 1) * ldc, lane);
+  float rb[3] = {0.f, 0.f, 0.f};
+  float g = 0.f;
+  if (p + 1 < n) {
+    const float2 tg = dot2<NP>(b, b, b, a);  // (|c_{p+1}|^2, g)
+    reflector(rb, R[(p + 1) * ldr + p + 1], tg.x);
+    g = tg.y;
+  }
+  if (lane == 0) {
+    R[p * ldr + p + 1] = rpq - ra[0] * bw;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      slot[i] = ra[i];
+      slot[3 + i] = rb[i];
+    }
+    slot[6] = g;
+  }
+}
+
+// Reflectors j and j + 1 applied to one trailing column k held in v, given
+// d = (cj . v, cj1 . v): w_a = v0a R[j][k] + d.x and, since
+// cj1 . (v - bw_a cj) = cj1 . v - bw_a g, w_b = v0b R[j + 1][k] + d.y - bw_a g.
+template <int NP>
+__device__ __forceinline__ void apply2(float2 (&v)[NP], float2 d, const float2 (&cj)[NP],
+                                       const float2 (&cj1)[NP], float* R, int ldr, int j,
+                                       int k, float v0a, float ba, float v0b, float bb,
+                                       float g, int lane) {
+  const float rja = R[j * ldr + k];
+  const float rjb = R[(j + 1) * ldr + k];
+  const float bwa = ba * fmaf(v0a, rja, d.x);
+  const float bwb = bb * fmaf(v0b, rjb, fmaf(-bwa, g, d.y));
+  if (lane == 0) {
+    R[j * ldr + k] = rja - v0a * bwa;
+    R[(j + 1) * ldr + k] = rjb - v0b * bwb;
+  }
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    v[q].x = fmaf(-bwb, cj1[q].x, fmaf(-bwa, cj[q].x, v[q].x));
+    v[q].y = fmaf(-bwb, cj1[q].y, fmaf(-bwa, cj[q].y, v[q].y));
+  }
+}
+
+// Fold one resident chunk of 32 * NR rows (zero past its last row) into R:
+// the reflectors in pairs (j, j + 1), one barrier per pair.  In the step of
+// pair j one warp, L, updates columns j + 2 and j + 3 and prepares the next
+// pair from them (look-ahead); the other warps share the remaining trailing
+// columns j + 4 .. n round-robin, so no warp holds more than one column
+// above the mean.
+template <int NR>
+__device__ void fold_chunk(float* C, int ldc, float* R, int ldr, float* S, int n, bool prof) {
+  constexpr int NP = NR / 2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp == 0) {  // the first pair
+    float2 a[NP], b[NP];
+    load_col<NR>(a, C, lane);
+    load_col<NR>(b, C + ldc, lane);
+    prepare_pair<NR>(a, b, C, ldc, R, ldr, S, 0, n, lane);
+  }
+  __syncthreads();
+
+  for (int j = 0; j < n; j += 2) {
+    const float* Sj = S + ((j >> 1) & 1) * 8;
+    const int L = ((j >> 1) + 1) % kWarps;
+    const bool ahead = warp == L && j + 2 < n;
+    int k = j + 2 < n ? j + 4 : j + 2;  // first column past the next pair
+    k = warp == L ? n + 1 : k + (warp - L - 1 + kWarps) % kWarps;
+    if (ahead || k <= n) {
+      const float v0a = Sj[0], ba = Sj[1], v0b = Sj[3], bb = Sj[4], g = Sj[6];
+      float2 cj[NP], cj1[NP], v[NP];
+      load_col<NR>(cj, C + j * ldc, lane);
+      load_col<NR>(cj1, C + (j + 1) * ldc, lane);
+      if (ahead) {  // columns j + 2 and j + 3 together: their reductions interleave
+        float2 a[NP];
+        load_col<NR>(a, C + (j + 2) * ldc, lane);
+        load_col<NR>(v, C + (j + 3) * ldc, lane);
+        const float2 da = dot2<NP>(cj, a, cj1, a);
+        const float2 dv = dot2<NP>(cj, v, cj1, v);
+        apply2<NP>(a, da, cj, cj1, R, ldr, j, j + 2, v0a, ba, v0b, bb, g, lane);
+        apply2<NP>(v, dv, cj, cj1, R, ldr, j, j + 3, v0a, ba, v0b, bb, g, lane);
+        prepare_pair<NR>(a, v, C, ldc, R, ldr, S + (((j >> 1) + 1) & 1) * 8, j + 2, n, lane);
+      }
+      for (; k <= n; k += kWarps - 1) {
+        float* Ck = C + k * ldc;
+        load_col<NR>(v, Ck, lane);
+        apply2<NP>(v, dot2<NP>(cj, v, cj1, v), cj, cj1, R, ldr, j, k, v0a, ba, v0b, bb, g,
+                   lane);
+        store_col<NR>(v, Ck, lane);
+      }
+    }
+    if (threadIdx.x == 0) {
+      R[j * ldr + j] = Sj[2];
+      if (j + 1 < n) R[(j + 1) * ldr + j + 1] = Sj[5];
+    }
+    TSQR_STAMP(prof && lane == 0 && (j >> 1) < kProfSteps, 8 + (j >> 1) * (kWarps + 1) + warp);
+    __syncthreads();
+    TSQR_STAMP(prof && threadIdx.x == 0 && (j >> 1) < kProfSteps,
+               8 + (j >> 1) * (kWarps + 1) + kWarps);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 tsqr_ls_solve_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                     float* __restrict__ x, int m, int n) {
-  extern __shared__ float smem[];
+                     float* __restrict__ x, int m, int n, int rc, int nbuf) {
+  extern __shared__ __align__(16) float smem[];
   const int n1 = n + 1;
-  const int ld = n1;  // row stride of R and C; n1 = 81 is odd: no bank conflicts
-  float* R = smem;
-  float* C = R + n1 * ld;
-  float* d = C + kRowsPerChunk * ld;
-  float* bw = d + n1;
-  float* xs = bw + n1;
+  const int ldr = r_stride(n1);
+  const int ldc = rc + 2;
+  float* Cbuf = smem;
+  float* R = Cbuf + nbuf * n1 * ldc;
+  float* S = R + n1 * ldr;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const bool prof = blockIdx.x == 0;
+  TSQR_STAMP(prof && tid == 0, 0);
   const float* As = A + static_cast<size_t>(blockIdx.x) * m * n;
   const float* bs = b + static_cast<size_t>(blockIdx.x) * m;
 
-  for (int i = tid; i < n1 * ld; i += kThreads) R[i] = 0.f;
+  for (int i = tid; i < n1 * ldr; i += kThreads) R[i] = 0.f;
 
-  for (int r0 = 0; r0 < m; r0 += kRowsPerChunk) {
-    __syncthreads();  // R zeroed / previous chunk fully folded
-    const int rows = min(kRowsPerChunk, m - r0);
-    // The chunk's rows of A are contiguous: rows * n floats.  Rows past m
-    // are zero, and a zero row leaves R unchanged.
-    const float* Ac = As + static_cast<size_t>(r0) * n;
-    for (int i = tid; i < kRowsPerChunk * n; i += kThreads) {
-      const int r = i / n;
-      const int k = i - r * n;
-      C[r * ld + k] = r < rows ? Ac[i] : 0.f;
+  const int nchunks = (m + rc - 1) / rc;
+  auto rows_of = [&](int c) { return min(rc, m - c * rc); };
+  auto pad_of = [](int rows) { return (rows + 63) & ~63; };
+  issue_chunk(Cbuf, ldc, As, bs, 0, rows_of(0), pad_of(rows_of(0)), n);
+
+  for (int ch = 0; ch < nchunks; ++ch) {
+    float* C = Cbuf + (nbuf == 2 ? (ch & 1) : 0) * n1 * ldc;
+    const int rows = rows_of(ch);
+    if (ch > 0 && nbuf == 1)  // the previous fold ended with a barrier
+      issue_chunk(C, ldc, As, bs, ch * rc, rows, pad_of(rows), n);
+    if (nbuf == 2 && ch + 1 < nchunks) {
+      const int rows2 = rows_of(ch + 1);
+      issue_chunk(Cbuf + ((ch + 1) & 1) * n1 * ldc, ldc, As, bs, (ch + 1) * rc, rows2,
+                  pad_of(rows2), n);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int r = tid; r < kRowsPerChunk; r += kThreads)
-      C[r * ld + n] = r < rows ? bs[r0 + r] : 0.f;
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-      // R[j][j] is stable until the row-j update below.
-      const float rjj = R[j * ld + j];
-      // d[k] = sum_r C[r][j] C[r][k] for k >= j (one warp per column).
-      for (int k = j + warp; k < n1; k += kWarps) {
-        float acc = 0.f;
-        for (int r = lane; r < kRowsPerChunk; r += 32)
-          acc = fmaf(C[r * ld + j], C[r * ld + k], acc);
-        acc = warp_sum(acc);
-        if (lane == 0) d[k] = acc;
-      }
-      __syncthreads();
-
-      // Householder vector v = [R[j][j] - alpha; C[:, j]], every thread
-      // derives the same scalars.
-      const float sigma = d[j];
-      const float norm = sqrtf(rjj * rjj + sigma);
-      const float alpha = rjj >= 0.f ? -norm : norm;
-      const float v0 = rjj - alpha;
-      const float vtv = v0 * v0 + sigma;
-      const float beta = vtv > 0.f ? 2.f / vtv : 0.f;
-
-      // w[k] = v0 R[j][k] + d[k];  R[j][k] -= v0 beta w[k]  (R[j][j] = alpha)
-      for (int k = j + tid; k < n1; k += kThreads) {
-        const float rjk = R[j * ld + k];
-        const float bwk = beta * (v0 * rjk + d[k]);
-        bw[k] = bwk;
-        R[j * ld + k] = k == j ? alpha : rjk - v0 * bwk;
-      }
-      __syncthreads();
-
-      // C[r][k] -= beta w[k] C[r][j] for k > j (column j is not read again).
-      const int width = n1 - j - 1;
-      for (int i = tid; i < kRowsPerChunk * width; i += kThreads) {
-        const int r = i / width;
-        const int k = j + 1 + (i - r * width);
-        C[r * ld + k] -= bw[k] * C[r * ld + j];
-      }
-      __syncthreads();
+    __syncthreads();  // chunk resident; R zeroed or the previous fold done
+    TSQR_STAMP(prof && tid == 0 && ch == 0, 1);
+    const bool p = prof && ch == 0;
+    switch (pad_of(rows) >> 5) {  // rows per lane, even
+      case 2: fold_chunk<2>(C, ldc, R, ldr, S, n, p); break;
+      case 4: fold_chunk<4>(C, ldc, R, ldr, S, n, p); break;
+      case 6: fold_chunk<6>(C, ldc, R, ldr, S, n, p); break;
+      case 8: fold_chunk<8>(C, ldc, R, ldr, S, n, p); break;
+      case 10: fold_chunk<10>(C, ldc, R, ldr, S, n, p); break;
+      case 12: fold_chunk<12>(C, ldc, R, ldr, S, n, p); break;
+      case 14: fold_chunk<14>(C, ldc, R, ldr, S, n, p); break;
+      case 16: fold_chunk<16>(C, ldc, R, ldr, S, n, p); break;
+      default: fold_chunk<kMaxRowsPerLane>(C, ldc, R, ldr, S, n, p); break;
     }
   }
+  TSQR_STAMP(prof && tid == 0, 2);
 
-  // Back-substitution R_A x = -(Q^T b) on one warp.
+  // Back-substitution R_A x = -(Q^T b) on one warp, by columns: lane owns
+  // rows lane + 32 q; after x_i is known every row r < i drops R[r][i] x_i.
   if (warp == 0) {
-    for (int i = n - 1; i >= 0; --i) {
-      float acc = 0.f;
-      for (int k = i + 1 + lane; k < n; k += 32) acc = fmaf(R[i * ld + k], xs[k], acc);
-      acc = warp_sum(acc);
-      const float xi = (-R[i * ld + n] - acc) / R[i * ld + i];
-      if (lane == 0) xs[i] = xi;
-      __syncwarp();
+    constexpr int kQ = (kMaxCols + 31) / 32;
+    float rhs[kQ];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int r = lane + 32 * q;
+      rhs[q] = r < n ? -R[r * ldr + n] : 0.f;
     }
     float* xo = x + static_cast<size_t>(blockIdx.x) * n;
-    for (int k = lane; k < n; k += 32) xo[k] = xs[k];
+    for (int i = n - 1; i >= 0; --i) {
+      const int qi = i >> 5;
+      float mine = rhs[0];
+#pragma unroll
+      for (int q = 1; q < kQ; ++q)
+        if (q == qi) mine = rhs[q];
+      const float xi = __shfl_sync(0xffffffffu, mine, i & 31) / R[i * ldr + i];
+      if (lane == (i & 31)) xo[i] = xi;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int r = lane + 32 * q;
+        if (r < i) rhs[q] = fmaf(-R[r * ldr + i], xi, rhs[q]);
+      }
+    }
+    TSQR_STAMP(prof && lane == 0, 3);
   }
 }
+
+std::atomic<bool> g_attr_set[kMaxDevices];
 
 }  // namespace
 
@@ -138,20 +409,55 @@ extern "C" {
 // Largest n + 1 the kernel takes.
 int bmpc_tsqr_max_cols() { return kMaxCols; }
 
+// Most rows a chunk may have (32 lanes times the most rows a lane holds).
+int bmpc_tsqr_max_chunk_rows() { return 32 * kMaxRowsPerLane; }
+
+// Dynamic shared memory the kernel takes for (n, rc, nbuf), in bytes.
+long long bmpc_tsqr_smem_bytes(int n, int rc, int nbuf) {
+  return static_cast<long long>(smem_bytes(n, rc, nbuf));
+}
+
 // A (batch, m, n), b (batch, m), x (batch, n): contiguous float32 on the
-// device.  Launches on `stream`; returns cudaGetLastError() after the launch.
+// device.  rc: rows per chunk, a multiple of 64 up to the maximum above;
+// nbuf: 1 (one tall chunk at a time) or 2 (the next chunk loads while this
+// one folds).  Launches on `stream`; returns cudaGetLastError() after the
+// launch.
 int bmpc_tsqr_ls_solve_f32(const float* A, const float* b, float* x, int batch,
-                           int m, int n, void* stream) {
-  if (batch < 1 || m < 1 || n < 1 || n + 1 > kMaxCols)
+                           int m, int n, int rc, int nbuf, void* stream) {
+  if (batch < 1 || m < 1 || n < 1 || n + 1 > kMaxCols || rc < 64 || rc % 64 != 0 ||
+      rc > 32 * kMaxRowsPerLane || (nbuf != 1 && nbuf != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      tsqr_ls_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const size_t smem = smem_bytes(n, rc, nbuf);
+  if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tsqr_ls_solve_kernel<<<batch, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(A, b, x, m, n);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!g_attr_set[dev].load(std::memory_order_acquire)) {
+    // Once per device and process: allow the largest dynamic shared memory.
+    err = cudaFuncSetAttribute(tsqr_ls_solve_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_attr_set[dev].store(true, std::memory_order_release);
+  }
+  tsqr_ls_solve_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      A, b, x, m, n, rc, nbuf);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef TSQR_PROFILE
+// Copy block 0's clock64() stamps of the last launch into out[0, count):
+// [0] start, [1] first chunk resident, [2] fold done, [3] back-substitution
+// done, then for pair step s < 128 (reflectors 2s, 2s + 1) of the first chunk
+// and warp w, [8 + s (kWarps + 1) + w] the warp's arrival at the step's
+// barrier and [8 + s (kWarps + 1) + kWarps] the barrier's release.  Returns
+// the number of warps, or a negative CUDA error.
+int bmpc_tsqr_profile(long long* out, int count) {
+  const int c = count < kProfSlots ? count : kProfSlots;
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * c);
+  return err == cudaSuccess ? kWarps : -static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

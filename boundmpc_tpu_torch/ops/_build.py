@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with `ctypes`.  Libraries
 land in ``build/boundmpc_tpu_torch/`` at the root of the checkout, keyed by a
 hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads in milliseconds.
+unchanged one loads in milliseconds.  ptxas's report (registers, shared
+memory, spills per kernel) is kept beside each library as ``<lib>.ptxas``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -20,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "boundmpc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -33,23 +35,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str) -> tuple[Path, float]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    Returns (library path, seconds spent compiling; 0.0 when cached)."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def build(name: str, src: Path | None = None, defines: tuple[str, ...] = ()) -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` (or ``src``, with extra ``-D`` ``defines``)
+    unless an up-to-date library exists.  Returns (library path, seconds spent
+    compiling; 0.0 when cached)."""
+    src = Path(src) if src is not None else CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{key}.so"
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n{proc.stderr}")
+    lib.with_suffix(".ptxas").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib, seconds
 

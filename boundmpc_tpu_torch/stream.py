@@ -55,13 +55,14 @@ class StreamCarry(NamedTuple):
 
 
 def make_stream_fn(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
-                   n_ticks: int, dtype=torch.float32, device=None,
+                   n_ticks: int, dtype=torch.float32, device="cuda",
                    cohort: int | None = None):
     """Stream executor for ``n_ticks`` control periods:
     fn(states, paths, weights (B, 15), x_phi_d (B, 3), pref) ->
     (states', StreamOut).  ``pref`` (batched QrPrefactor) is required.
     ``cohort``: minimum number of finished lanes that triggers the commit
-    phase; None -> max(1, B // 16)."""
+    phase; None -> max(1, B // 16).  The constants live on ``device`` (the
+    card unless the caller asks for the CPU); the fleet's tensors must too."""
     K = n_ticks
     engine.full_f32_matmuls()
     coeffs = jerkint.coeff_matrices(cfg.N, cfg.dt, dtype=dtype, device=device)

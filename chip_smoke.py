@@ -7,10 +7,14 @@ Phases (any failure exits nonzero and prints no result line):
   1. device and library facts (card name and power limit as nvidia-smi
      reports them, torch / CUDA versions, float32 matmul settings);
   2. build (or load) the hand-written CUDA kernel from the checkout;
-  3. the kernel against its plain PyTorch version on the card at the main
-     path's shape (256, 550, 80) float32: random rows (2e-4 abs/rel) and
-     ill-conditioned weighted rows (5e-3 relative to a float64 lstsq), with
-     both times;
+  3. the kernel against its plain PyTorch version on the card, float32, at
+     six shapes (TSQR_SHAPES: the main path's (256, 550, 80) and others that
+     take several chunks, ragged rows, the widest n): random rows (2e-4
+     abs/rel) and ill-conditioned weighted rows (5e-3 relative to a float64
+     lstsq); the kernel's shared-memory layout against the wrapper's; and at
+     (256, 550, 80) and (1024, 550, 80) the kernel, the plain version and one
+     library call (torch.linalg.lstsq) timed in turns, beside the kernel's
+     bound;
   4. the main path: a B = 256 fleet through the float32 stream executor
      under RUNTIME_F32 from rest, gated on success >= 0.99 over live
      lane-ticks, no dead lane, finite violations, phi > 0 on every lane, and
@@ -32,8 +36,13 @@ B_MAIN = 256
 K_CHUNK = 20  # ticks per stream call
 N_CHUNKS = 1
 B_SMALL, K_SMALL = 4, 4
-TSQR_SHAPE = (256, 550, 80)
+# Phase 3: the main path's shape, a larger batch, several chunks, ragged rows
+# with a small n, the widest n the kernel takes, one scenario.
+TSQR_SHAPES = ((256, 550, 80), (1024, 550, 80), (7, 1100, 80), (5, 173, 10),
+               (3, 700, 127), (1, 550, 80))
+TIMED_SHAPES = ((256, 550, 80), (1024, 550, 80))
 TIMING_REPS = 20
+PLAIN_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -43,20 +52,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    import torch
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def phase_facts(torch, engine):
@@ -76,38 +71,78 @@ def phase_facts(torch, engine):
 def phase_build(_build):
     path, seconds = _build.build("tsqr")
     log(f"build: {path.name} " + (f"compiled in {seconds:.1f} s" if seconds else "cached"))
+    for line in path.with_suffix(".ptxas").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas: {line.strip()}")
 
 
-def phase_kernel(torch, tsqr):
-    Bk, m, n = TSQR_SHAPE
-    rng = np.random.default_rng(0)
-    A = torch.as_tensor(rng.normal(size=(Bk, m, n)).astype(np.float32), device="cuda")
+def check_shape(torch, tsqr, shape, seed):
+    """The kernel against its plain version at one shape: random rows
+    (2e-4 abs/rel) and weighted rows (< 5e-3 relative to a float64 lstsq)."""
+    Bk, m, n = shape
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
     b = torch.as_tensor(rng.normal(size=(Bk, m)).astype(np.float32), device="cuda")
     x_k = tsqr.ls_solve(A, b)
     x_p = tsqr.ls_solve_reference(A, b)
     torch.cuda.synchronize()
     err = (x_k - x_p).abs()
     max_abs = float(err.max())
-    ok = bool((err <= 2e-4 + 2e-4 * x_p.abs()).all()) and bool(torch.isfinite(x_k).all())
-    log(f"tsqr random rows {TSQR_SHAPE}: kernel vs plain max abs err {max_abs:.3e}")
-    if not ok:
-        fail(f"kernel disagrees with the plain version beyond 2e-4 (max abs {max_abs:.3e})")
+    if not (bool((err <= 2e-4 + 2e-4 * x_p.abs()).all()) and bool(torch.isfinite(x_k).all())):
+        fail(f"{shape}: kernel disagrees with the plain version beyond 2e-4 "
+             f"(max abs {max_abs:.3e})")
 
-    A64 = rng.normal(size=(Bk, m, n))
     scale = 10.0 ** rng.uniform(0, 6, size=(Bk, m))
-    A64 *= scale[:, :, None]
-    b64 = rng.normal(size=(Bk, m)) * scale
-    x64 = np.stack([np.linalg.lstsq(A64[i], -b64[i], rcond=None)[0] for i in range(Bk)])
-    Aw = torch.as_tensor(A64.astype(np.float32), device="cuda")
-    bw = torch.as_tensor(b64.astype(np.float32), device="cuda")
+    A64 = torch.as_tensor(rng.normal(size=shape) * scale[:, :, None])
+    b64 = torch.as_tensor(rng.normal(size=(Bk, m)) * scale)
+    x64 = torch.linalg.lstsq(A64, -b64[..., None]).solution[..., 0]
+    Aw, bw = A64.float().cuda(), b64.float().cuda()
     rel = {}
     for name, fn in (("kernel", tsqr.ls_solve), ("plain", tsqr.ls_solve_reference)):
-        x = fn(Aw, bw).double().cpu().numpy()
-        rel[name] = float(np.abs(x - x64).max() / np.abs(x64).max())
-    log(f"tsqr weighted rows: rel err vs float64 lstsq kernel {rel['kernel']:.3e} "
-        f"plain {rel['plain']:.3e}")
+        x = fn(Aw, bw).double().cpu()
+        rel[name] = float((x - x64).abs().max() / x64.abs().max())
+    rc, nbuf = tsqr.schedule(m, n)
+    log(f"tsqr {shape} (rows per chunk {rc}, buffers {nbuf}, {-(-m // rc)} chunks): "
+        f"random rows max abs err {max_abs:.3e}; weighted rows rel err vs float64 lstsq "
+        f"kernel {rel['kernel']:.3e} plain {rel['plain']:.3e}")
     if not rel["kernel"] < 5e-3:
-        fail(f"kernel weighted-row relative error {rel['kernel']:.3e} >= 5e-3")
+        fail(f"{shape}: kernel weighted-row relative error {rel['kernel']:.3e} >= 5e-3")
+    return A, b, max_abs
+
+
+def phase_kernel(torch, tsqr, bench):
+    lib = tsqr._library()
+    for n in sorted({s[2] for s in TSQR_SHAPES}):
+        for nbuf in (1, 2):
+            rc = tsqr.chunk_rows(n, nbuf)
+            got, want = lib.bmpc_tsqr_smem_bytes(n, rc, nbuf), tsqr.smem_bytes(n, rc, nbuf)
+            if got != want or want > tsqr.SMEM_LIMIT:
+                fail(f"shared memory at n={n} rc={rc} nbuf={nbuf}: kernel {got}, "
+                     f"wrapper {want}, limit {tsqr.SMEM_LIMIT}")
+
+    timed = {}
+    for i, shape in enumerate(TSQR_SHAPES):
+        A, b, max_abs = check_shape(torch, tsqr, shape, i)
+        if shape not in TIMED_SHAPES:
+            continue
+        # Plain and kernel in turns, the library call between them.
+        run = {"plain": lambda: tsqr.ls_solve_reference(A, b),
+               "kernel": lambda: tsqr.ls_solve(A, b),
+               "library": lambda: torch.linalg.lstsq(A, -b[..., None]).solution}
+        reps = {"plain": PLAIN_REPS, "kernel": TIMING_REPS, "library": PLAIN_REPS}
+        ms = {k: [] for k in run}
+        for k in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            ms[k].append(bench.cuda_ms(run[k], reps[k]))
+        bound, by = bench.bound_ms(*shape)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        timed[shape] = dict(max_abs_err=max_abs, ms=mean["kernel"], plain_ms=mean["plain"],
+                            library_ms=mean["library"], bound_ms=bound, bound_by=by,
+                            bound_share=bound / mean["kernel"])
+        log(f"tsqr time at {shape}: kernel {ms['kernel'][0]:.4f} / {ms['kernel'][1]:.4f} ms, "
+            f"plain {ms['plain'][0]:.4f} / {ms['plain'][1]:.4f} ms, torch.linalg.lstsq "
+            f"{ms['library'][0]:.4f} / {ms['library'][1]:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), kernel at {100 * bound / mean['kernel']:.1f}% of the bound "
+            f"(CUDA events, {TIMING_REPS} / {PLAIN_REPS} reps)")
 
     try:
         tsqr.ls_solve(A.double(), b.double())
@@ -115,16 +150,7 @@ def phase_kernel(torch, tsqr):
         pass
     else:
         fail("ls_solve accepted a float64 CUDA tensor")
-
-    # Alternate plain, kernel, kernel, plain within this one process.
-    plain1 = cuda_ms(lambda: tsqr.ls_solve_reference(A, b), TIMING_REPS)
-    kern1 = cuda_ms(lambda: tsqr.ls_solve(A, b), TIMING_REPS)
-    kern2 = cuda_ms(lambda: tsqr.ls_solve(A, b), TIMING_REPS)
-    plain2 = cuda_ms(lambda: tsqr.ls_solve_reference(A, b), TIMING_REPS)
-    ms, plain_ms = (kern1 + kern2) / 2, (plain1 + plain2) / 2
-    log(f"tsqr time at {TSQR_SHAPE}: kernel {kern1:.4f} / {kern2:.4f} ms, "
-        f"plain {plain1:.4f} / {plain2:.4f} ms (CUDA events, {TIMING_REPS} reps)")
-    return max_abs, ms, plain_ms
+    return timed
 
 
 def phase_main_path(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr):
@@ -209,12 +235,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from boundmpc_tpu_torch import batch, engine, ocp, solver, stream as stream_mod
-    from boundmpc_tpu_torch.ops import _build, tsqr
+    from boundmpc_tpu_torch.ops import _build, tsqr, tsqr_bench
     from boundmpc_tpu_torch.runtime import build_fleet
 
     phase_facts(torch, engine)
     phase_build(_build)
-    max_abs, ms, plain_ms = phase_kernel(torch, tsqr)
+    timed = phase_kernel(torch, tsqr, tsqr_bench)
     cfg, scfg = ocp.OcpConfig(), solver.RUNTIME_F32
     launches = phase_main_path(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr)
     phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet)
@@ -223,8 +249,10 @@ def main() -> int:
         "name": "tsqr_ls_solve", "route": "cuda",
         "source": "boundmpc_tpu_torch/csrc/tsqr.cu",
         "replaces": "boundmpc_tpu/ops/tsqr.py:37",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches, **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
+        "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
+                     "library_ms": timed[TIMED_SHAPES[1]]["library_ms"],
+                     "bound_ms": timed[TIMED_SHAPES[1]]["bound_ms"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

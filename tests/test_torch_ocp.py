@@ -41,7 +41,7 @@ def _close(x_jax, x_torch, msg=""):
 
 def _paths(sc):
     p_np = sc.build(dtype=np.float64)
-    return p_np, convert.from_numpy("PathData", p_np._asdict())
+    return p_np, convert.from_numpy("PathData", p_np._asdict(), device="cpu")
 
 
 def _state(sc, path_np, seed):
@@ -56,7 +56,7 @@ def _state(sc, path_np, seed):
         dddphi=jnp.asarray(0.2), pr_ref=st.pr_ref + 0.02 * rng.normal(size=3),
         iw_ref=jnp.asarray(path_np.seg_iw[2] + 0.01), sector=jnp.asarray(2, jnp.int32))
     st_np = {k: np.asarray(v) for k, v in st._asdict().items()}
-    return st, convert.from_numpy("EngineState", st_np)
+    return st, convert.from_numpy("EngineState", st_np, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)

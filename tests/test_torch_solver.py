@@ -71,7 +71,7 @@ def _jax_trajectory(case):
 
 
 def _port(name, tree):
-    return convert.from_numpy(name, tree._asdict(), dtype=torch.float64)
+    return convert.from_numpy(name, tree._asdict(), device="cpu", dtype=torch.float64)
 
 
 def _batch1(tree):

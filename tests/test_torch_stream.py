@@ -35,11 +35,11 @@ def jax_fleet(dtype):
 def port_inputs(f, dtype):
     """The JAX fleet's state and problem data as port tensors."""
     asd = lambda t: {k: np.asarray(v) for k, v in t._asdict().items()}
-    return (convert.from_numpy("EngineState", asd(f.states), dtype=dtype),
-            convert.from_numpy("PathData", asd(f.paths), dtype=dtype),
+    return (convert.from_numpy("EngineState", asd(f.states), device="cpu", dtype=dtype),
+            convert.from_numpy("PathData", asd(f.paths), device="cpu", dtype=dtype),
             torch.tensor(np.array(f.weights), dtype=dtype),
             torch.tensor(np.array(f.x_phi_d), dtype=dtype),
-            convert.from_numpy("QrPrefactor", asd(f._pref), dtype=dtype))
+            convert.from_numpy("QrPrefactor", asd(f._pref), device="cpu", dtype=dtype))
 
 
 def run_jax_stream(f, dtype):

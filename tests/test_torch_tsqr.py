@@ -2,7 +2,10 @@
 
 On the CPU the port's ``ls_solve`` runs its plain version (torch QR +
 triangular solve); the hand-written CUDA kernel is held against that plain
-version on the card by ``chip_smoke.py``.
+version on the card by ``chip_smoke.py``.  ``kernel_model`` repeats the
+kernel's schedule in float32 torch (the chunk height the wrapper computes,
+the fold of each chunk into the resident R by pairs of reflectors, the
+back-substitution by columns), so the CPU sees the kernel's arithmetic.
 """
 import jax
 import jax.numpy as jnp
@@ -84,3 +87,100 @@ def test_ls_solve_cuda_float64_raises():
     b = torch.zeros((2, 10), dtype=torch.float64, device="cuda")
     with pytest.raises(TypeError):
         ttsqr.ls_solve(A, b)
+
+
+def _reflector(rjj, sigma):
+    norm = torch.sqrt(rjj * rjj + sigma)
+    alpha = torch.where(rjj >= 0, -norm, norm)
+    v0 = rjj - alpha
+    vtv = v0 * v0 + sigma
+    beta = torch.where(vtv > 0, 2.0 / torch.where(vtv > 0, vtv, 1.0), 0.0)
+    return v0, beta, alpha
+
+
+def kernel_model(A: torch.Tensor, b: torch.Tensor, nbuf: int = ttsqr.NBUF) -> torch.Tensor:
+    """csrc/tsqr.cu's schedule in float32: rows of [A | b] in chunks of
+    ``schedule(m, n, nbuf)[0]`` rows, each folded into R by the same
+    Householder reflections (sign rule, vtv > 0 guard) taken in pairs: the
+    pair's owner applies reflector j to column j + 1 and forms reflector
+    j + 1 and g = c_{j+1} . c_j; every trailing column then takes both in
+    one pass, with cj1 . (v - bw_a cj) = cj1 . v - bw_a g.  Then
+    R_A x = -(Q^T b) by columns."""
+    A, b = A.float(), b.float()
+    B, m, n = A.shape
+    rc, _ = ttsqr.schedule(m, n, nbuf)
+    R = torch.zeros((B, n + 1, n + 1), dtype=torch.float32)
+    for r0 in range(0, m, rc):
+        C = torch.cat([A[:, r0:r0 + rc], b[:, r0:r0 + rc, None]], dim=2)
+        for j in range(0, n, 2):
+            cj = C[:, :, j]
+            v0a, ba, alpha_a = _reflector(R[:, j, j], (cj * cj).sum(1))
+            bw = ba * (v0a * R[:, j, j + 1] + (cj * C[:, :, j + 1]).sum(1))
+            R[:, j, j + 1] -= v0a * bw
+            C[:, :, j + 1] -= bw[:, None] * cj
+            R[:, j, j] = alpha_a
+            if j + 1 == n:
+                break
+            cj1 = C[:, :, j + 1]
+            v0b, bb, alpha_b = _reflector(R[:, j + 1, j + 1], (cj1 * cj1).sum(1))
+            g = (cj1 * cj).sum(1)
+            T = C[:, :, j + 2:]
+            da = torch.einsum("br,brk->bk", cj, T)
+            db = torch.einsum("br,brk->bk", cj1, T)
+            bwa = ba[:, None] * (v0a[:, None] * R[:, j, j + 2:] + da)
+            bwb = bb[:, None] * (v0b[:, None] * R[:, j + 1, j + 2:] + (db - bwa * g[:, None]))
+            R[:, j, j + 2:] -= v0a[:, None] * bwa
+            R[:, j + 1, j + 2:] -= v0b[:, None] * bwb
+            C[:, :, j + 2:] = T - cj[:, :, None] * bwa[:, None, :] - cj1[:, :, None] * bwb[:, None, :]
+            R[:, j + 1, j + 1] = alpha_b
+    rhs = -R[:, :n, n].clone()
+    x = torch.zeros((B, n), dtype=torch.float32)
+    for i in reversed(range(n)):
+        x[:, i] = rhs[:, i] / R[:, i, i]
+        rhs[:, :i] -= R[:, :i, i] * x[:, i:i + 1]
+    return x
+
+
+@pytest.mark.parametrize("B,m,n,nbuf", [(4, 200, 16, 1), (5, 173, 9, 1), (2, 700, 12, 1),
+                                        (2, 700, 11, 2)])
+def test_kernel_model_matches_pallas_kernel(B, m, n, nbuf):
+    """The kernel's schedule against the TPU kernel (interpret mode); m = 700
+    takes two chunks, and an odd n ends on a single reflector."""
+    rng = np.random.default_rng(B * 1000 + m + nbuf)
+    A = rng.normal(size=(B, m, n)).astype(np.float32)
+    b = rng.normal(size=(B, m)).astype(np.float32)
+    x_j = _jax_kernel_interpret(jnp.asarray(A), jnp.asarray(b), rc=64, lanes=8)
+    x_m = kernel_model(torch.from_numpy(A), torch.from_numpy(b), nbuf)
+    np.testing.assert_allclose(x_m.numpy(), np.asarray(x_j), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,m,n", [(2, 160, 12), (2, 700, 21), (2, 550, 80)])
+def test_kernel_model_weighted_illconditioned(B, m, n):
+    """Rows weighted 1 .. 1e6: the float32 schedule stays within 5e-3 of a
+    float64 lstsq (relative to the largest |x|)."""
+    rng = np.random.default_rng(m)
+    scale = 10.0 ** rng.uniform(0, 6, size=(B, m))
+    A64 = rng.normal(size=(B, m, n)) * scale[:, :, None]
+    b64 = rng.normal(size=(B, m)) * scale
+    x64 = np.stack([np.linalg.lstsq(A64[i], -b64[i], rcond=None)[0] for i in range(B)])
+    x = kernel_model(torch.from_numpy(A64), torch.from_numpy(b64)).double().numpy()
+    assert np.abs(x - x64).max() / np.abs(x64).max() < 5e-3
+
+
+@pytest.mark.parametrize("n,nbuf,rows", [(10, 1, 576), (80, 1, 576), (127, 1, 320),
+                                         (10, 2, 576), (80, 2, 256), (127, 2, 128)])
+def test_chunk_rows_fit_shared_memory(n, nbuf, rows):
+    """The chunk height is the most rows (a multiple of 64, at most 576) whose
+    layout fits the 232,448 bytes of shared memory a block may take."""
+    rc = ttsqr.chunk_rows(n, nbuf)
+    assert rc == rows and rc % 64 == 0
+    assert ttsqr.smem_bytes(n, rc, nbuf) <= ttsqr.SMEM_LIMIT == 232_448
+    assert rc == ttsqr.MAX_CHUNK_ROWS or ttsqr.smem_bytes(n, rc + 64, nbuf) > ttsqr.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m,n,nbuf,want", [(550, 80, 1, (576, 1)), (1100, 80, 1, (576, 1)),
+                                           (173, 10, 1, (192, 1)), (700, 127, 1, (320, 1)),
+                                           (550, 80, 2, (256, 2)), (100, 80, 2, (128, 1))])
+def test_schedule(m, n, nbuf, want):
+    """The solver's m = 550 is one chunk; one chunk never takes two buffers."""
+    assert ttsqr.schedule(m, n, nbuf) == want
