@@ -29,28 +29,31 @@
 //    loads and stores, and the rows per lane are a compile-time constant
 //    (fold_chunk<NR>, chosen per chunk; the last chunk is zero-padded to a
 //    multiple of 64 rows): no index division and no predicate in the loop.
-//  * Two reflectors per pass, one barrier per pair (a compact-WY block of
-//    2).  A trailing column takes reflectors j and j + 1 in one load, two
-//    dot products with their shuffle reductions interleaved, and one store;
-//    the cross term c_{j+1} . (v - bw_j c_j) = c_{j+1} . v - bw_j g with
-//    g = c_{j+1} . c_j.  So 40 barriers and 40 passes over the chunk at
-//    n = 80 instead of 80 (and 720 for PR 1's 64-row chunks).
+//  * Two reflectors per pass, one barrier per pair.  A trailing column is
+//    loaded once, takes reflector j and then reflector j + 1 in registers,
+//    and is stored once: 40 barriers and 40 passes over the chunk at n = 80
+//    instead of 80 (and 720 with 64-row chunks).  The arithmetic is that of
+//    two single steps, operation for operation.  The compact-WY form, which
+//    takes both dot products from the loaded column and corrects the second
+//    by bw_j (c_{j+1} . c_j), was about 9% faster but rounds differently,
+//    and the float32 closed loop that chip_smoke.py's phase 5 holds to
+//    float64 sits at the rounding noise floor (PERF.md).
 //  * Look-ahead.  In the step of pair j one warp updates columns j + 2 and
-//    j + 3 first, then forms reflector j + 2, applies it to column j + 3,
-//    forms reflector j + 3 and g, and publishes them, while the other
-//    warps share the remaining trailing columns round-robin (balanced
-//    within one column).  Its chain of dependent reductions is what the
-//    late steps, with few trailing columns, wait for.
+//    j + 3 first (their reductions interleaved), then forms reflector
+//    j + 2, applies it to column j + 3, forms reflector j + 3 and
+//    publishes both, while the other warps share the remaining trailing
+//    columns round-robin (balanced within one column).  Its chain of
+//    dependent reductions is what the late steps, with few trailing
+//    columns, wait for.
 //  * 16 warps.  8 are slower, and 32 leave 64 registers a thread, which
 //    spills.
-//  * Asynchronous row loads.  A chunk arrives by cp.async (4-byte copies:
-//    the row length n is not a multiple of 16 bytes in general, and the
-//    chunk is stored transposed, which rules out TMA's bulk and tensor
-//    copies) straight into the column-major chunk.  With nbuf = 2 the next
-//    chunk loads while this one folds; with nbuf = 1 the chunk is twice as
-//    tall.  The time goes with the number of steps more than with the rows,
-//    so one tall chunk wins and the wrapper takes nbuf = 1; the
-//    double-buffered schedule stays for m beyond a chunk and for comparison.
+//  * Asynchronous row loads, one buffer.  A chunk arrives by cp.async
+//    (4-byte copies: the row length n is not a multiple of 16 bytes in
+//    general, and the chunk is stored transposed, which rules out TMA's bulk
+//    and tensor copies) straight into the column-major chunk.  Two buffers
+//    of half the height, the next chunk loading while this one folds, were
+//    slower at every m measured, 550 and 1100 included: the time goes with
+//    the number of steps more than with the rows, so one tall chunk wins.
 //  * Back-substitution on one warp, by columns: lane r holds the right-hand
 //    side of rows r, r+32, ...; x_i is broadcast by a shuffle.
 //  * Tensor cores are not used: a larger compact-WY block in 3xTF32 on
@@ -66,14 +69,10 @@
 
 namespace {
 
-#ifndef TSQR_WARPS
-#define TSQR_WARPS 16
-#endif
 constexpr int kMaxCols = 128;        // largest supported n + 1
 constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may take
-constexpr int kWarps = TSQR_WARPS;
+constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
-static_assert(kWarps >= 2, "one warp looks ahead while the others update");
 constexpr int kMaxRowsPerLane = 18;  // rows per chunk <= 32 * 18 = 576
 constexpr int kMaxDevices = 64;
 
@@ -100,19 +99,12 @@ __device__ __forceinline__ long long stamp() {
 // (lane r reads R[r][i]) hit 32 different banks.
 __host__ __device__ inline int r_stride(int n1) { return n1 | 1; }
 
-// Shared memory: nbuf column-major chunks of n1 columns x (rc + 2) rows (an
-// even stride keeps every column 8-byte aligned), R (n1 x r_stride), and
-// two slots of 8 floats for a pair of reflectors.
-size_t smem_bytes(int n, int rc, int nbuf) {
+// Shared memory: a column-major chunk of n1 columns x (rc + 2) rows (an even
+// stride keeps every column 8-byte aligned), R (n1 x r_stride), and two
+// slots of 8 floats for a pair of reflectors.
+size_t smem_bytes(int n, int rc) {
   const size_t n1 = static_cast<size_t>(n) + 1;
-  return sizeof(float) * (static_cast<size_t>(nbuf) * n1 * (rc + 2) +
-                          n1 * r_stride(static_cast<int>(n1)) + 16);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  return sizeof(float) * (n1 * (rc + 2) + n1 * r_stride(static_cast<int>(n1)) + 16);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -123,9 +115,8 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Start copying rows [r0, r0 + rows) of [A | b] into the chunk C (column k at
@@ -157,8 +148,25 @@ __device__ __forceinline__ void store_col(const float2 (&v)[NR / 2], float* col,
 #pragma unroll
   for (int q = 0; q < NR / 2; ++q) p[32 * q] = v[q];
 }
-// Sum over the warp of two lane-local dot products at once (two shuffle
-// chains, interleaved): a.b and c.d.
+// Sum over the warp of a lane-local dot product a . b: the .x and the .y
+// rows in two partial sums, then a butterfly, so every lane holds the same
+// bits.
+template <int NP>
+__device__ __forceinline__ float dot1(const float2 (&a)[NP], const float2 (&b)[NP]) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    s0 = fmaf(a[q].x, b[q].x, s0);
+    s1 = fmaf(a[q].y, b[q].y, s1);
+  }
+  float s = s0 + s1;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// a . b and c . d at once, each exactly as dot1 sums it; the two shuffle
+// chains interleave.
 template <int NP>
 __device__ __forceinline__ float2 dot2(const float2 (&a)[NP], const float2 (&b)[NP],
                                        const float2 (&c)[NP], const float2 (&d)[NP]) {
@@ -195,8 +203,8 @@ __device__ __forceinline__ void reflector(float* out, float rjj, float sigma) {
 // warp holding columns p and p + 1 in a and b, updated by every earlier
 // reflector (p + 1 <= n always: column n is the b column).
 // Forms reflector p, applies it to column p + 1 (and R[p][p + 1]), forms
-// reflector p + 1 and g = c_{p+1} . c_p, stores both columns and publishes
-// slot = (v0, beta, alpha of p; v0, beta, alpha of p + 1; g).
+// reflector p + 1, stores both columns and publishes slot = (v0, beta,
+// alpha of p; v0, beta, alpha of p + 1).
 template <int NR>
 __device__ __forceinline__ void prepare_pair(float2 (&a)[NR / 2], float2 (&b)[NR / 2],
                                              float* C, int ldc, float* R, int ldr,
@@ -215,12 +223,7 @@ __device__ __forceinline__ void prepare_pair(float2 (&a)[NR / 2], float2 (&b)[NR
   store_col<NR>(a, C + p * ldc, lane);
   store_col<NR>(b, C + (p + 1) * ldc, lane);
   float rb[3] = {0.f, 0.f, 0.f};
-  float g = 0.f;
-  if (p + 1 < n) {
-    const float2 tg = dot2<NP>(b, b, b, a);  // (|c_{p+1}|^2, g)
-    reflector(rb, R[(p + 1) * ldr + p + 1], tg.x);
-    g = tg.y;
-  }
+  if (p + 1 < n) reflector(rb, R[(p + 1) * ldr + p + 1], dot1<NP>(b, b));
   if (lane == 0) {
     R[p * ldr + p + 1] = rpq - ra[0] * bw;
 #pragma unroll
@@ -228,30 +231,57 @@ __device__ __forceinline__ void prepare_pair(float2 (&a)[NR / 2], float2 (&b)[NR
       slot[i] = ra[i];
       slot[3 + i] = rb[i];
     }
-    slot[6] = g;
   }
 }
 
-// Reflectors j and j + 1 applied to one trailing column k held in v, given
-// d = (cj . v, cj1 . v): w_a = v0a R[j][k] + d.x and, since
-// cj1 . (v - bw_a cj) = cj1 . v - bw_a g, w_b = v0b R[j + 1][k] + d.y - bw_a g.
+// Reflector j applied to the trailing columns k0 and k1 held in a and b,
+// given da = cj . a and db = cj . b: w = v0 R[j][k] + d, R[j][k] -= v0 beta w,
+// column -= beta w cj.
 template <int NP>
-__device__ __forceinline__ void apply2(float2 (&v)[NP], float2 d, const float2 (&cj)[NP],
-                                       const float2 (&cj1)[NP], float* R, int ldr, int j,
-                                       int k, float v0a, float ba, float v0b, float bb,
-                                       float g, int lane) {
-  const float rja = R[j * ldr + k];
-  const float rjb = R[(j + 1) * ldr + k];
-  const float bwa = ba * fmaf(v0a, rja, d.x);
-  const float bwb = bb * fmaf(v0b, rjb, fmaf(-bwa, g, d.y));
+__device__ __forceinline__ void apply1(float2 (&a)[NP], float2 (&b)[NP], float2 d,
+                                       const float2 (&cj)[NP], float* R, int ldr, int j,
+                                       int k0, int k1, float v0, float beta, int lane) {
+  const float r0 = R[j * ldr + k0];
+  const float r1 = R[j * ldr + k1];
+  const float bw0 = beta * fmaf(v0, r0, d.x);
+  const float bw1 = beta * fmaf(v0, r1, d.y);
   if (lane == 0) {
-    R[j * ldr + k] = rja - v0a * bwa;
-    R[(j + 1) * ldr + k] = rjb - v0b * bwb;
+    R[j * ldr + k0] = r0 - v0 * bw0;
+    R[j * ldr + k1] = r1 - v0 * bw1;
   }
 #pragma unroll
   for (int q = 0; q < NP; ++q) {
-    v[q].x = fmaf(-bwb, cj1[q].x, fmaf(-bwa, cj[q].x, v[q].x));
-    v[q].y = fmaf(-bwb, cj1[q].y, fmaf(-bwa, cj[q].y, v[q].y));
+    a[q].x = fmaf(-bw0, cj[q].x, a[q].x);
+    a[q].y = fmaf(-bw0, cj[q].y, a[q].y);
+    b[q].x = fmaf(-bw1, cj[q].x, b[q].x);
+    b[q].y = fmaf(-bw1, cj[q].y, b[q].y);
+  }
+}
+
+// The same for one column: reflector j then reflector j + 1 on v, in
+// registers, with the arithmetic of two single steps.
+template <int NP>
+__device__ __forceinline__ void apply_pair(float2 (&v)[NP], const float2 (&cj)[NP],
+                                           const float2 (&cj1)[NP], float* R, int ldr, int j,
+                                           int k, float v0a, float ba, float v0b, float bb,
+                                           int lane) {
+  const float ra = R[j * ldr + k];
+  const float rb = R[(j + 1) * ldr + k];
+  const float bwa = ba * fmaf(v0a, ra, dot1<NP>(cj, v));
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    v[q].x = fmaf(-bwa, cj[q].x, v[q].x);
+    v[q].y = fmaf(-bwa, cj[q].y, v[q].y);
+  }
+  const float bwb = bb * fmaf(v0b, rb, dot1<NP>(cj1, v));
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    v[q].x = fmaf(-bwb, cj1[q].x, v[q].x);
+    v[q].y = fmaf(-bwb, cj1[q].y, v[q].y);
+  }
+  if (lane == 0) {
+    R[j * ldr + k] = ra - v0a * bwa;
+    R[(j + 1) * ldr + k] = rb - v0b * bwb;
   }
 }
 
@@ -282,7 +312,7 @@ __device__ void fold_chunk(float* C, int ldc, float* R, int ldr, float* S, int n
     int k = j + 2 < n ? j + 4 : j + 2;  // first column past the next pair
     k = warp == L ? n + 1 : k + (warp - L - 1 + kWarps) % kWarps;
     if (ahead || k <= n) {
-      const float v0a = Sj[0], ba = Sj[1], v0b = Sj[3], bb = Sj[4], g = Sj[6];
+      const float v0a = Sj[0], ba = Sj[1], v0b = Sj[3], bb = Sj[4];
       float2 cj[NP], cj1[NP], v[NP];
       load_col<NR>(cj, C + j * ldc, lane);
       load_col<NR>(cj1, C + (j + 1) * ldc, lane);
@@ -290,17 +320,15 @@ __device__ void fold_chunk(float* C, int ldc, float* R, int ldr, float* S, int n
         float2 a[NP];
         load_col<NR>(a, C + (j + 2) * ldc, lane);
         load_col<NR>(v, C + (j + 3) * ldc, lane);
-        const float2 da = dot2<NP>(cj, a, cj1, a);
-        const float2 dv = dot2<NP>(cj, v, cj1, v);
-        apply2<NP>(a, da, cj, cj1, R, ldr, j, j + 2, v0a, ba, v0b, bb, g, lane);
-        apply2<NP>(v, dv, cj, cj1, R, ldr, j, j + 3, v0a, ba, v0b, bb, g, lane);
+        apply1<NP>(a, v, dot2<NP>(cj, a, cj, v), cj, R, ldr, j, j + 2, j + 3, v0a, ba, lane);
+        apply1<NP>(a, v, dot2<NP>(cj1, a, cj1, v), cj1, R, ldr, j + 1, j + 2, j + 3, v0b, bb,
+                   lane);
         prepare_pair<NR>(a, v, C, ldc, R, ldr, S + (((j >> 1) + 1) & 1) * 8, j + 2, n, lane);
       }
       for (; k <= n; k += kWarps - 1) {
         float* Ck = C + k * ldc;
         load_col<NR>(v, Ck, lane);
-        apply2<NP>(v, dot2<NP>(cj, v, cj1, v), cj, cj1, R, ldr, j, k, v0a, ba, v0b, bb, g,
-                   lane);
+        apply_pair<NP>(v, cj, cj1, R, ldr, j, k, v0a, ba, v0b, bb, lane);
         store_col<NR>(v, Ck, lane);
       }
     }
@@ -317,13 +345,13 @@ __device__ void fold_chunk(float* C, int ldc, float* R, int ldr, float* S, int n
 
 __global__ void __launch_bounds__(kThreads, 1)
 tsqr_ls_solve_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                     float* __restrict__ x, int m, int n, int rc, int nbuf) {
+                     float* __restrict__ x, int m, int n, int rc) {
   extern __shared__ __align__(16) float smem[];
   const int n1 = n + 1;
   const int ldr = r_stride(n1);
   const int ldc = rc + 2;
-  float* Cbuf = smem;
-  float* R = Cbuf + nbuf * n1 * ldc;
+  float* C = smem;
+  float* R = C + n1 * ldc;
   float* S = R + n1 * ldr;
 
   const int tid = threadIdx.x;
@@ -336,28 +364,16 @@ tsqr_ls_solve_kernel(const float* __restrict__ A, const float* __restrict__ b,
 
   for (int i = tid; i < n1 * ldr; i += kThreads) R[i] = 0.f;
 
-  const int nchunks = (m + rc - 1) / rc;
-  auto rows_of = [&](int c) { return min(rc, m - c * rc); };
-  auto pad_of = [](int rows) { return (rows + 63) & ~63; };
-  issue_chunk(Cbuf, ldc, As, bs, 0, rows_of(0), pad_of(rows_of(0)), n);
-
-  for (int ch = 0; ch < nchunks; ++ch) {
-    float* C = Cbuf + (nbuf == 2 ? (ch & 1) : 0) * n1 * ldc;
-    const int rows = rows_of(ch);
-    if (ch > 0 && nbuf == 1)  // the previous fold ended with a barrier
-      issue_chunk(C, ldc, As, bs, ch * rc, rows, pad_of(rows), n);
-    if (nbuf == 2 && ch + 1 < nchunks) {
-      const int rows2 = rows_of(ch + 1);
-      issue_chunk(Cbuf + ((ch + 1) & 1) * n1 * ldc, ldc, As, bs, (ch + 1) * rc, rows2,
-                  pad_of(rows2), n);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int r0 = 0, ch = 0; r0 < m; r0 += rc, ++ch) {
+    // The previous fold ended with a barrier, so the buffer is free.
+    const int rows = min(rc, m - r0);
+    const int rows_pad = (rows + 63) & ~63;
+    issue_chunk(C, ldc, As, bs, r0, rows, rows_pad, n);
+    cp_async_wait_all();
     __syncthreads();  // chunk resident; R zeroed or the previous fold done
     TSQR_STAMP(prof && tid == 0 && ch == 0, 1);
     const bool p = prof && ch == 0;
-    switch (pad_of(rows) >> 5) {  // rows per lane, even
+    switch (rows_pad >> 5) {  // rows per lane, even
       case 2: fold_chunk<2>(C, ldc, R, ldr, S, n, p); break;
       case 4: fold_chunk<4>(C, ldc, R, ldr, S, n, p); break;
       case 6: fold_chunk<6>(C, ldc, R, ldr, S, n, p); break;
@@ -412,22 +428,20 @@ int bmpc_tsqr_max_cols() { return kMaxCols; }
 // Most rows a chunk may have (32 lanes times the most rows a lane holds).
 int bmpc_tsqr_max_chunk_rows() { return 32 * kMaxRowsPerLane; }
 
-// Dynamic shared memory the kernel takes for (n, rc, nbuf), in bytes.
-long long bmpc_tsqr_smem_bytes(int n, int rc, int nbuf) {
-  return static_cast<long long>(smem_bytes(n, rc, nbuf));
+// Dynamic shared memory the kernel takes for (n, rc), in bytes.
+long long bmpc_tsqr_smem_bytes(int n, int rc) {
+  return static_cast<long long>(smem_bytes(n, rc));
 }
 
 // A (batch, m, n), b (batch, m), x (batch, n): contiguous float32 on the
-// device.  rc: rows per chunk, a multiple of 64 up to the maximum above;
-// nbuf: 1 (one tall chunk at a time) or 2 (the next chunk loads while this
-// one folds).  Launches on `stream`; returns cudaGetLastError() after the
-// launch.
+// device.  rc: rows per chunk, a multiple of 64 up to the maximum above.
+// Launches on `stream`; returns cudaGetLastError() after the launch.
 int bmpc_tsqr_ls_solve_f32(const float* A, const float* b, float* x, int batch,
-                           int m, int n, int rc, int nbuf, void* stream) {
+                           int m, int n, int rc, void* stream) {
   if (batch < 1 || m < 1 || n < 1 || n + 1 > kMaxCols || rc < 64 || rc % 64 != 0 ||
-      rc > 32 * kMaxRowsPerLane || (nbuf != 1 && nbuf != 2))
+      rc > 32 * kMaxRowsPerLane)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n, rc, nbuf);
+  const size_t smem = smem_bytes(n, rc);
   if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -441,7 +455,7 @@ int bmpc_tsqr_ls_solve_f32(const float* A, const float* b, float* x, int batch,
     g_attr_set[dev].store(true, std::memory_order_release);
   }
   tsqr_ls_solve_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, b, x, m, n, rc, nbuf);
+      A, b, x, m, n, rc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,9 @@ batch it launches the hand-written streaming Householder kernel
 JAX package's ``_ls_solve_xla``).  Nothing else is accepted: a CUDA tensor
 of another dtype, shape or layout raises.
 
-The kernel's schedule is chosen here: ``schedule(m, n)`` gives the rows per
-chunk and the number of chunk buffers, from the shared memory the kernel
-lays out (``smem_bytes``, the same formula as the kernel's).
+The kernel's chunk height is chosen here: ``chunk_rows(m, n)``, from the
+shared memory the kernel lays out (``smem_bytes``, the same formula as the
+kernel's).
 """
 from __future__ import annotations
 
@@ -24,30 +24,23 @@ _KERNEL = "tsqr"
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may take on an H100
 MAX_COLS = 128  # largest n + 1 the kernel takes
 MAX_CHUNK_ROWS = 576  # 32 lanes x the kernel's rows per lane
-NBUF = 1  # one tall chunk at a time (PERF.md: faster than two overlapped ones)
 
 
-def smem_bytes(n: int, rc: int, nbuf: int) -> int:
-    """Shared memory of one block, float32: ``nbuf`` chunks of n+1 columns x
-    (rc + 2) rows, R (n+1 rows of stride (n+1) | 1), two slots of 8 floats
-    for a pair of reflectors."""
+def smem_bytes(n: int, rc: int) -> int:
+    """Shared memory of one block, float32: a chunk of n+1 columns x (rc + 2)
+    rows, R (n+1 rows of stride (n+1) | 1), two slots of 8 floats for a pair
+    of reflectors."""
     n1 = n + 1
-    return 4 * (nbuf * n1 * (rc + 2) + n1 * (n1 | 1) + 16)
+    return 4 * (n1 * (rc + 2) + n1 * (n1 | 1) + 16)
 
 
-def chunk_rows(n: int, nbuf: int = NBUF) -> int:
-    """Most rows per chunk, a multiple of 64 up to MAX_CHUNK_ROWS, for which
-    ``nbuf`` chunks and R fit in SMEM_LIMIT."""
+def chunk_rows(m: int, n: int) -> int:
+    """Rows per chunk for an (m, n) problem: the most, a multiple of 64 up to
+    MAX_CHUNK_ROWS, for which the chunk and R fit in SMEM_LIMIT, and no more
+    than m needs."""
     n1 = n + 1
     free = SMEM_LIMIT // 4 - n1 * (n1 | 1) - 16
-    return min(MAX_CHUNK_ROWS, (free // (nbuf * n1) - 2) // 64 * 64)
-
-
-def schedule(m: int, n: int, nbuf: int = NBUF) -> tuple[int, int]:
-    """(rows per chunk, chunk buffers) for an (m, n) problem: chunks no taller
-    than m needs, and one buffer when one chunk holds every row."""
-    rc = min(chunk_rows(n, nbuf), -(-m // 64) * 64)
-    return rc, (1 if m <= rc else nbuf)
+    return min(MAX_CHUNK_ROWS, (free // n1 - 2) // 64 * 64, -(-m // 64) * 64)
 
 
 def ls_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -68,18 +61,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``csrc/tsqr.cu``."""
     lib.bmpc_tsqr_ls_solve_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.bmpc_tsqr_ls_solve_f32.restype = ctypes.c_int
     for fn in (lib.bmpc_tsqr_max_cols, lib.bmpc_tsqr_max_chunk_rows):
         fn.argtypes, fn.restype = [], ctypes.c_int
-    lib.bmpc_tsqr_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.bmpc_tsqr_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.bmpc_tsqr_smem_bytes.restype = ctypes.c_longlong
     if (lib.bmpc_tsqr_max_cols(), lib.bmpc_tsqr_max_chunk_rows()) != (MAX_COLS, MAX_CHUNK_ROWS):
         raise RuntimeError("csrc/tsqr.cu and ops/tsqr.py disagree on the kernel's limits")
     return lib
 
 
-def _launch(A: torch.Tensor, b: torch.Tensor, nbuf: int = NBUF) -> torch.Tensor:
+def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if A.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"ls_solve kernel takes float32, got {A.dtype} / {b.dtype}")
     if b.device != A.device:
@@ -94,14 +87,13 @@ def _launch(A: torch.Tensor, b: torch.Tensor, nbuf: int = NBUF) -> torch.Tensor:
         raise ValueError(f"kernel takes m >= 1 and 2 <= n + 1 <= {MAX_COLS}, got m = {m}, "
                          f"n = {n}")
     lib = _library()
-    rc, nb = schedule(m, n, nbuf)
     x = torch.empty((B, n), dtype=torch.float32, device=A.device)
     if B == 0:
         return x
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                         B, m, n, rc, nb, stream)
+                                         B, m, n, chunk_rows(m, n), stream)
     if err != 0:
         raise RuntimeError(f"tsqr kernel launch failed: CUDA error {err}")
     ls_solve.launches += 1

@@ -1,24 +1,20 @@
-"""The TSQR kernel on the card: its bound, and builds of it timed side by side.
+"""The TSQR kernel on the card: its bound, its phases, and an earlier build
+timed beside it.
 
     python3 -m boundmpc_tpu_torch.ops.tsqr_bench [--baseline SRC] [--profile] [--out FILE]
 
-On one GPU, in one process, each shape's variants are timed in turns (the
-list forward, then backward; CUDA events over repeated launches after a
-warm-up) and held against this build's result:
-
-  * ``nbuf1``: this build, one tall chunk at a time (the wrapper's schedule);
-  * ``nbuf2``: this build, chunks half as tall, the next one loading while
-    this one folds;
-  * ``warps8`` / ``warps32``: built with ``-DTSQR_WARPS=8`` / ``32`` (256 or
-    1024 threads, not 512);
-  * ``baseline``: with ``--baseline``, a source with the earlier C interface
-    ``bmpc_tsqr_ls_solve_f32(A, b, x, batch, m, n, stream)``, such as an
-    older ``csrc/tsqr.cu``.
+On one GPU, in one process, at each shape in SHAPES: this build's time by
+CUDA events over repeated launches after a warm-up, beside the kernel's
+bound; with ``--baseline``, a kernel source with the earlier C interface
+``bmpc_tsqr_ls_solve_f32(A, b, x, batch, m, n, stream)`` (such as the first
+port's ``csrc/tsqr.cu``, 64-row chunks and one reflector per pass) is built
+too, held against this build's result and timed in turns with it (this,
+baseline, baseline, this).
 
 ``--profile`` also builds with ``-DTSQR_PROFILE`` and reports block 0's
-clock64() stamps at (256, 550, 80): cycles in the load, the fold, the
-back-substitution, and per step (a pair of reflectors) the slowest and the
-mean warp's cycles before the barrier.
+clock64() stamps at (256, 550, 80): cycles in the load, the fold and the
+back-substitution, and the cycles of each step (a pair of reflectors) by
+quarter of the fold.
 
 Prints the card's name and power limit, then one JSON object per shape;
 ``--out`` writes the same lines to a file.  ``chip_smoke.py`` takes
@@ -73,49 +69,52 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _caller(lib: ctypes.CDLL, nbuf: int | None):
-    """x = f(A, b) through ``lib``: the current interface with the wrapper's
-    schedule for ``nbuf`` buffers, or the earlier one when ``nbuf`` is None."""
+def _caller(lib: ctypes.CDLL, current: bool = True):
+    """x = f(A, b) through ``lib``, by the current C interface (with the
+    wrapper's chunk height) or the earlier one."""
     def f(A, b):
         B, m, n = A.shape
         x = torch.empty((B, n), dtype=torch.float32, device=A.device)
         stream = torch.cuda.current_stream().cuda_stream
-        if nbuf is None:
-            err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                             B, m, n, stream)
-        else:
-            rc, nb = tsqr.schedule(m, n, nbuf)
-            err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                             B, m, n, rc, nb, stream)
+        extra = (tsqr.chunk_rows(m, n),) if current else ()
+        err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, m, n,
+                                         *extra, stream)
         if err != 0:
             raise RuntimeError(f"launch failed: CUDA error {err}")
         return x
     return f
 
 
-VARIANTS = {"nbuf1": ((), 1), "nbuf2": ((), 2), "warps8": (("TSQR_WARPS=8",), 1),
-            "warps32": (("TSQR_WARPS=32",), 1)}
-
-
 def _lib(defines=()) -> ctypes.CDLL:
     return tsqr.bind(ctypes.CDLL(str(_build.build("tsqr", defines=defines)[0])))
 
 
-def variants(baseline: str | None, profile: bool) -> dict:
-    """name -> x = f(A, b) for every build compared (nvcc runs in parallel)."""
-    builds = [("tsqr", None, d) for d in dict.fromkeys(d for d, _ in VARIANTS.values())]
-    builds += [("tsqr", None, ("TSQR_PROFILE",))] if profile else []
-    builds += [("tsqr_baseline", baseline, ())] if baseline else []
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda a: _build.build(*a), builds))
-    out = {name: _caller(_lib(defines), nbuf) for name, (defines, nbuf) in VARIANTS.items()}
+def builds(baseline: str | None, profile: bool) -> dict:
+    """name -> x = f(A, b) for this build, the baseline and the profiled
+    build (nvcc runs in parallel)."""
+    todo = {"kernel": ("tsqr", None, ())}
     if baseline:
-        old = ctypes.CDLL(str(_build.build("tsqr_baseline", src=baseline)[0]))
+        todo["baseline"] = ("tsqr_baseline", baseline, ())
+    if profile:
+        todo["profile"] = ("tsqr", None, ("TSQR_PROFILE",))
+    with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+        paths = dict(zip(todo, pool.map(lambda a: _build.build(*a)[0], todo.values())))
+    out = {"kernel": _caller(_lib())}
+    if baseline:
+        old = ctypes.CDLL(str(paths["baseline"]))
         old.bmpc_tsqr_ls_solve_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         old.bmpc_tsqr_ls_solve_f32.restype = ctypes.c_int
-        out["baseline"] = _caller(old, None)
+        out["baseline"] = _caller(old, current=False)
     return out
+
+
+def _inputs(shape):
+    B, m, n = shape
+    rng = np.random.default_rng(0)
+    A = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+    b = torch.as_tensor(rng.normal(size=(B, m)).astype(np.float32), device="cuda")
+    return A, b
 
 
 def profile(shape=SHAPES[0]) -> dict:
@@ -123,52 +122,39 @@ def profile(shape=SHAPES[0]) -> dict:
     lib = _lib(("TSQR_PROFILE",))
     lib.bmpc_tsqr_profile.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.bmpc_tsqr_profile.restype = ctypes.c_int
-    B, m, n = shape
-    rng = np.random.default_rng(0)
-    A = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
-    b = torch.as_tensor(rng.normal(size=(B, m)).astype(np.float32), device="cuda")
-    f = _caller(lib, 1)
+    A, b = _inputs(shape)
+    f = _caller(lib)
     f(A, b)
-    buf = (ctypes.c_longlong * (8 + 128 * 33))()
+    buf = (ctypes.c_longlong * (8 + 128 * 17))()
     warps = lib.bmpc_tsqr_profile(buf, len(buf))
     if warps < 0:
         raise RuntimeError(f"profile read failed: CUDA error {-warps}")
     st = np.array(buf[:], dtype=np.int64)
-    steps = min((n + 1) // 2, 128)
-    grid = st[8:8 + steps * (warps + 1)].reshape(steps, warps + 1)
-    release = grid[:, warps]
-    start = np.concatenate([[st[1]], release[:-1]])
-    busy = grid[:, :warps] - start[:, None]
-    step = release - start
+    steps = min((shape[2] + 1) // 2, 128)
+    release = st[8:8 + steps * (warps + 1)].reshape(steps, warps + 1)[:, warps]
+    step = np.diff(np.concatenate([[st[1]], release]))
     cuts = [0, steps // 4, steps // 2, 3 * steps // 4, steps]
     return {
         "shape": list(shape), "warps": warps,
         "cycles": {"load": int(st[1] - st[0]), "fold": int(st[2] - st[1]),
                    "back_substitution": int(st[3] - st[2]), "total": int(st[3] - st[0])},
         "step_cycles_by_quarter": [float(step[a:b].mean()) for a, b in zip(cuts, cuts[1:])],
-        "slowest_warp_busy_by_quarter": [float(busy[a:b].max(1).mean())
-                                         for a, b in zip(cuts, cuts[1:])],
-        "mean_warp_busy_by_quarter": [float(busy[a:b].mean()) for a, b in zip(cuts, cuts[1:])],
         "kernel_ms": cuda_ms(lambda: f(A, b)),
     }
 
 
 def compare(shape, fns: dict) -> dict:
-    B, m, n = shape
-    rng = np.random.default_rng(0)
-    A = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
-    b = torch.as_tensor(rng.normal(size=(B, m)).astype(np.float32), device="cuda")
-    ref = fns["nbuf1"](A, b)
+    A, b = _inputs(shape)
+    ref = fns["kernel"](A, b)
     diff = {k: float((f(A, b) - ref).abs().max()) for k, f in fns.items()}
     names = list(fns)
     ms = {k: [] for k in names}
     for order in (names, names[::-1]):
         for k in order:
             ms[k].append(cuda_ms(lambda f=fns[k]: f(A, b)))
-    bound, by = bound_ms(B, m, n)
-    return {"shape": list(shape), "schedule_nbuf1": list(tsqr.schedule(m, n, 1)),
-            "schedule_nbuf2": list(tsqr.schedule(m, n, 2)), "bound_ms": bound,
-            "bound_by": by, "ms": ms, "max_abs_diff_vs_nbuf1": diff}
+    bound, by = bound_ms(*shape)
+    return {"shape": list(shape), "rows_per_chunk": tsqr.chunk_rows(*shape[1:]),
+            "bound_ms": bound, "bound_by": by, "ms": ms, "max_abs_diff_vs_kernel": diff}
 
 
 def main(argv=None) -> int:
@@ -183,7 +169,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    fns = variants(args.baseline, args.profile)
+    fns = builds(args.baseline, args.profile)
     lines = []
     if args.profile:
         lines.append(json.dumps({"profile": profile()}))

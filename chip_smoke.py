@@ -101,8 +101,8 @@ def check_shape(torch, tsqr, shape, seed):
     for name, fn in (("kernel", tsqr.ls_solve), ("plain", tsqr.ls_solve_reference)):
         x = fn(Aw, bw).double().cpu()
         rel[name] = float((x - x64).abs().max() / x64.abs().max())
-    rc, nbuf = tsqr.schedule(m, n)
-    log(f"tsqr {shape} (rows per chunk {rc}, buffers {nbuf}, {-(-m // rc)} chunks): "
+    rc = tsqr.chunk_rows(m, n)
+    log(f"tsqr {shape} (rows per chunk {rc}, {-(-m // rc)} chunks): "
         f"random rows max abs err {max_abs:.3e}; weighted rows rel err vs float64 lstsq "
         f"kernel {rel['kernel']:.3e} plain {rel['plain']:.3e}")
     if not rel["kernel"] < 5e-3:
@@ -112,13 +112,12 @@ def check_shape(torch, tsqr, shape, seed):
 
 def phase_kernel(torch, tsqr, bench):
     lib = tsqr._library()
-    for n in sorted({s[2] for s in TSQR_SHAPES}):
-        for nbuf in (1, 2):
-            rc = tsqr.chunk_rows(n, nbuf)
-            got, want = lib.bmpc_tsqr_smem_bytes(n, rc, nbuf), tsqr.smem_bytes(n, rc, nbuf)
-            if got != want or want > tsqr.SMEM_LIMIT:
-                fail(f"shared memory at n={n} rc={rc} nbuf={nbuf}: kernel {got}, "
-                     f"wrapper {want}, limit {tsqr.SMEM_LIMIT}")
+    for _, m, n in TSQR_SHAPES:
+        rc = tsqr.chunk_rows(m, n)
+        got, want = lib.bmpc_tsqr_smem_bytes(n, rc), tsqr.smem_bytes(n, rc)
+        if got != want or want > tsqr.SMEM_LIMIT:
+            fail(f"shared memory at n={n} rc={rc}: kernel {got}, wrapper {want}, "
+                 f"limit {tsqr.SMEM_LIMIT}")
 
     timed = {}
     for i, shape in enumerate(TSQR_SHAPES):

@@ -3,9 +3,9 @@
 On the CPU the port's ``ls_solve`` runs its plain version (torch QR +
 triangular solve); the hand-written CUDA kernel is held against that plain
 version on the card by ``chip_smoke.py``.  ``kernel_model`` repeats the
-kernel's schedule in float32 torch (the chunk height the wrapper computes,
-the fold of each chunk into the resident R by pairs of reflectors, the
-back-substitution by columns), so the CPU sees the kernel's arithmetic.
+kernel's arithmetic in float32 torch (the chunk height the wrapper computes,
+the fold of each chunk into the resident R reflector by reflector, the
+back-substitution by columns), so the CPU sees what the card computes.
 """
 import jax
 import jax.numpy as jnp
@@ -98,41 +98,26 @@ def _reflector(rjj, sigma):
     return v0, beta, alpha
 
 
-def kernel_model(A: torch.Tensor, b: torch.Tensor, nbuf: int = ttsqr.NBUF) -> torch.Tensor:
-    """csrc/tsqr.cu's schedule in float32: rows of [A | b] in chunks of
-    ``schedule(m, n, nbuf)[0]`` rows, each folded into R by the same
-    Householder reflections (sign rule, vtv > 0 guard) taken in pairs: the
-    pair's owner applies reflector j to column j + 1 and forms reflector
-    j + 1 and g = c_{j+1} . c_j; every trailing column then takes both in
-    one pass, with cj1 . (v - bw_a cj) = cj1 . v - bw_a g.  Then
+def kernel_model(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """csrc/tsqr.cu's arithmetic in float32: rows of [A | b] in chunks of
+    ``chunk_rows(m, n)`` rows, each folded into R column by column by the
+    same Householder reflections (sign rule, vtv > 0 guard; the kernel
+    applies them two at a time to a loaded column, in this order), then
     R_A x = -(Q^T b) by columns."""
     A, b = A.float(), b.float()
     B, m, n = A.shape
-    rc, _ = ttsqr.schedule(m, n, nbuf)
+    rc = ttsqr.chunk_rows(m, n)
     R = torch.zeros((B, n + 1, n + 1), dtype=torch.float32)
     for r0 in range(0, m, rc):
         C = torch.cat([A[:, r0:r0 + rc], b[:, r0:r0 + rc, None]], dim=2)
-        for j in range(0, n, 2):
+        for j in range(n):
             cj = C[:, :, j]
-            v0a, ba, alpha_a = _reflector(R[:, j, j], (cj * cj).sum(1))
-            bw = ba * (v0a * R[:, j, j + 1] + (cj * C[:, :, j + 1]).sum(1))
-            R[:, j, j + 1] -= v0a * bw
-            C[:, :, j + 1] -= bw[:, None] * cj
-            R[:, j, j] = alpha_a
-            if j + 1 == n:
-                break
-            cj1 = C[:, :, j + 1]
-            v0b, bb, alpha_b = _reflector(R[:, j + 1, j + 1], (cj1 * cj1).sum(1))
-            g = (cj1 * cj).sum(1)
-            T = C[:, :, j + 2:]
-            da = torch.einsum("br,brk->bk", cj, T)
-            db = torch.einsum("br,brk->bk", cj1, T)
-            bwa = ba[:, None] * (v0a[:, None] * R[:, j, j + 2:] + da)
-            bwb = bb[:, None] * (v0b[:, None] * R[:, j + 1, j + 2:] + (db - bwa * g[:, None]))
-            R[:, j, j + 2:] -= v0a[:, None] * bwa
-            R[:, j + 1, j + 2:] -= v0b[:, None] * bwb
-            C[:, :, j + 2:] = T - cj[:, :, None] * bwa[:, None, :] - cj1[:, :, None] * bwb[:, None, :]
-            R[:, j + 1, j + 1] = alpha_b
+            v0, beta, alpha = _reflector(R[:, j, j], (cj * cj).sum(1))
+            w = v0[:, None] * R[:, j, j + 1:] + torch.einsum("br,brk->bk", cj, C[:, :, j + 1:])
+            bw = beta[:, None] * w
+            R[:, j, j + 1:] -= v0[:, None] * bw
+            R[:, j, j] = alpha
+            C[:, :, j + 1:] -= cj[:, :, None] * bw[:, None, :]
     rhs = -R[:, :n, n].clone()
     x = torch.zeros((B, n), dtype=torch.float32)
     for i in reversed(range(n)):
@@ -141,16 +126,16 @@ def kernel_model(A: torch.Tensor, b: torch.Tensor, nbuf: int = ttsqr.NBUF) -> to
     return x
 
 
-@pytest.mark.parametrize("B,m,n,nbuf", [(4, 200, 16, 1), (5, 173, 9, 1), (2, 700, 12, 1),
-                                        (2, 700, 11, 2)])
-def test_kernel_model_matches_pallas_kernel(B, m, n, nbuf):
+@pytest.mark.parametrize("B,m,n", [(4, 200, 16), (5, 173, 9), (2, 700, 12), (2, 1300, 11)])
+def test_kernel_model_matches_pallas_kernel(B, m, n):
     """The kernel's schedule against the TPU kernel (interpret mode); m = 700
-    takes two chunks, and an odd n ends on a single reflector."""
-    rng = np.random.default_rng(B * 1000 + m + nbuf)
+    and 1300 take two and three chunks, and an odd n ends on a single
+    reflector."""
+    rng = np.random.default_rng(B * 1000 + m)
     A = rng.normal(size=(B, m, n)).astype(np.float32)
     b = rng.normal(size=(B, m)).astype(np.float32)
     x_j = _jax_kernel_interpret(jnp.asarray(A), jnp.asarray(b), rc=64, lanes=8)
-    x_m = kernel_model(torch.from_numpy(A), torch.from_numpy(b), nbuf)
+    x_m = kernel_model(torch.from_numpy(A), torch.from_numpy(b))
     np.testing.assert_allclose(x_m.numpy(), np.asarray(x_j), rtol=2e-4, atol=2e-4)
 
 
@@ -167,20 +152,15 @@ def test_kernel_model_weighted_illconditioned(B, m, n):
     assert np.abs(x - x64).max() / np.abs(x64).max() < 5e-3
 
 
-@pytest.mark.parametrize("n,nbuf,rows", [(10, 1, 576), (80, 1, 576), (127, 1, 320),
-                                         (10, 2, 576), (80, 2, 256), (127, 2, 128)])
-def test_chunk_rows_fit_shared_memory(n, nbuf, rows):
+@pytest.mark.parametrize("m,n,rows", [(5000, 10, 576), (5000, 80, 576), (5000, 127, 320),
+                                      (550, 80, 576), (1100, 80, 576), (173, 10, 192),
+                                      (700, 127, 320), (100, 80, 128)])
+def test_chunk_rows_fit_shared_memory(m, n, rows):
     """The chunk height is the most rows (a multiple of 64, at most 576) whose
-    layout fits the 232,448 bytes of shared memory a block may take."""
-    rc = ttsqr.chunk_rows(n, nbuf)
+    layout fits the 232,448 bytes of shared memory a block may take, and no
+    more than m needs: the solver's m = 550 is one chunk."""
+    rc = ttsqr.chunk_rows(m, n)
     assert rc == rows and rc % 64 == 0
-    assert ttsqr.smem_bytes(n, rc, nbuf) <= ttsqr.SMEM_LIMIT == 232_448
-    assert rc == ttsqr.MAX_CHUNK_ROWS or ttsqr.smem_bytes(n, rc + 64, nbuf) > ttsqr.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("m,n,nbuf,want", [(550, 80, 1, (576, 1)), (1100, 80, 1, (576, 1)),
-                                           (173, 10, 1, (192, 1)), (700, 127, 1, (320, 1)),
-                                           (550, 80, 2, (256, 2)), (100, 80, 2, (128, 1))])
-def test_schedule(m, n, nbuf, want):
-    """The solver's m = 550 is one chunk; one chunk never takes two buffers."""
-    assert ttsqr.schedule(m, n, nbuf) == want
+    assert ttsqr.smem_bytes(n, rc) <= ttsqr.SMEM_LIMIT == 232_448
+    assert rc in (ttsqr.MAX_CHUNK_ROWS, -(-m // 64) * 64) or \
+        ttsqr.smem_bytes(n, rc + 64) > ttsqr.SMEM_LIMIT
