@@ -224,6 +224,7 @@ __device__ __forceinline__ void prepare_pair(float2 (&a)[NR / 2], float2 (&b)[NR
   store_col<NR>(b, C + (p + 1) * ldc, lane);
   float rb[3] = {0.f, 0.f, 0.f};
   if (p + 1 < n) reflector(rb, R[(p + 1) * ldr + p + 1], dot1<NP>(b, b));
+  __syncwarp();  // every lane has read R[p][p + 1] before lane 0 writes it
   if (lane == 0) {
     R[p * ldr + p + 1] = rpq - ra[0] * bw;
 #pragma unroll
@@ -245,6 +246,7 @@ __device__ __forceinline__ void apply1(float2 (&a)[NP], float2 (&b)[NP], float2 
   const float r1 = R[j * ldr + k1];
   const float bw0 = beta * fmaf(v0, r0, d.x);
   const float bw1 = beta * fmaf(v0, r1, d.y);
+  __syncwarp();  // every lane has read R[j][k0], R[j][k1] before lane 0 writes them
   if (lane == 0) {
     R[j * ldr + k0] = r0 - v0 * bw0;
     R[j * ldr + k1] = r1 - v0 * bw1;
@@ -279,6 +281,7 @@ __device__ __forceinline__ void apply_pair(float2 (&v)[NP], const float2 (&cj)[N
     v[q].x = fmaf(-bwb, cj1[q].x, v[q].x);
     v[q].y = fmaf(-bwb, cj1[q].y, v[q].y);
   }
+  __syncwarp();  // every lane has read R[j][k], R[j + 1][k] before lane 0 writes them
   if (lane == 0) {
     R[j * ldr + k] = ra - v0a * bwa;
     R[(j + 1) * ldr + k] = rb - v0b * bwb;
@@ -427,11 +430,6 @@ int bmpc_tsqr_max_cols() { return kMaxCols; }
 
 // Most rows a chunk may have (32 lanes times the most rows a lane holds).
 int bmpc_tsqr_max_chunk_rows() { return 32 * kMaxRowsPerLane; }
-
-// Dynamic shared memory the kernel takes for (n, rc), in bytes.
-long long bmpc_tsqr_smem_bytes(int n, int rc) {
-  return static_cast<long long>(smem_bytes(n, rc));
-}
 
 // A (batch, m, n), b (batch, m), x (batch, n): contiguous float32 on the
 // device.  rc: rows per chunk, a multiple of 64 up to the maximum above.

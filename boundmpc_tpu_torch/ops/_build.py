@@ -14,7 +14,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 
@@ -35,18 +34,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str, src: Path | None = None, defines: tuple[str, ...] = ()) -> tuple[Path, float]:
-    """Compile ``csrc/<name>.cu`` (or ``src``, with extra ``-D`` ``defines``)
-    unless an up-to-date library exists.  Returns (library path, seconds spent
+def build(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` (with extra ``-D`` ``defines``) unless an
+    up-to-date library exists.  Returns (library path, seconds spent
     compiling; 0.0 when cached)."""
-    src = Path(src) if src is not None else CSRC / f"{name}.cu"
+    src = CSRC / f"{name}.cu"
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{key}.so"
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)

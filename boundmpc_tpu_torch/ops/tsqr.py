@@ -9,7 +9,8 @@ of another dtype, shape or layout raises.
 
 The kernel's chunk height is chosen here: ``chunk_rows(m, n)``, from the
 shared memory the kernel lays out (``smem_bytes``, the same formula as the
-kernel's).
+kernel's).  The kernel refuses a height whose layout exceeds its limit, and
+the wrapper raises on that.
 """
 from __future__ import annotations
 
@@ -65,8 +66,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bmpc_tsqr_ls_solve_f32.restype = ctypes.c_int
     for fn in (lib.bmpc_tsqr_max_cols, lib.bmpc_tsqr_max_chunk_rows):
         fn.argtypes, fn.restype = [], ctypes.c_int
-    lib.bmpc_tsqr_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.bmpc_tsqr_smem_bytes.restype = ctypes.c_longlong
     if (lib.bmpc_tsqr_max_cols(), lib.bmpc_tsqr_max_chunk_rows()) != (MAX_COLS, MAX_CHUNK_ROWS):
         raise RuntimeError("csrc/tsqr.cu and ops/tsqr.py disagree on the kernel's limits")
     return lib

@@ -1,29 +1,24 @@
-"""The TSQR kernel on the card: its bound, its phases, and an earlier build
-timed beside it.
+"""The TSQR kernel on the card: its bound, its time, and its cycle profile.
 
-    python3 -m boundmpc_tpu_torch.ops.tsqr_bench [--baseline SRC] [--profile] [--out FILE]
+    python3 -m boundmpc_tpu_torch.ops.tsqr_bench [--profile]
 
-On one GPU, in one process, at each shape in SHAPES: this build's time by
-CUDA events over repeated launches after a warm-up, beside the kernel's
-bound; with ``--baseline``, a kernel source with the earlier C interface
-``bmpc_tsqr_ls_solve_f32(A, b, x, batch, m, n, stream)`` (such as the first
-port's ``csrc/tsqr.cu``, 64-row chunks and one reflector per pass) is built
-too, held against this build's result and timed in turns with it (this,
-baseline, baseline, this).
+On one GPU, at each shape in SHAPES: the kernel's time by CUDA events over
+repeated launches after a warm-up, beside its bound.
 
 ``--profile`` also builds with ``-DTSQR_PROFILE`` and reports block 0's
 clock64() stamps at (256, 550, 80): cycles in the load, the fold and the
 back-substitution, and the cycles of each step (a pair of reflectors) by
-quarter of the fold.
+quarter of the fold.  Profilers do not run on every machine with a card;
+these stamps are then the only view inside the kernel, and the work on the
+kernel's remaining distance to its bound (ROADMAP Queue 1 item 17) is
+chosen and checked by them.
 
-Prints the card's name and power limit, then one JSON object per shape;
-``--out`` writes the same lines to a file.  ``chip_smoke.py`` takes
-``cuda_ms`` and ``bound_ms`` from here.
+Prints the card's name and power limit, then one JSON object per shape.
+``chip_smoke.py`` takes ``cuda_ms`` and ``bound_ms`` from here.
 """
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import ctypes
 import json
 import subprocess
@@ -69,46 +64,6 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _caller(lib: ctypes.CDLL, current: bool = True):
-    """x = f(A, b) through ``lib``, by the current C interface (with the
-    wrapper's chunk height) or the earlier one."""
-    def f(A, b):
-        B, m, n = A.shape
-        x = torch.empty((B, n), dtype=torch.float32, device=A.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        extra = (tsqr.chunk_rows(m, n),) if current else ()
-        err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, m, n,
-                                         *extra, stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-        return x
-    return f
-
-
-def _lib(defines=()) -> ctypes.CDLL:
-    return tsqr.bind(ctypes.CDLL(str(_build.build("tsqr", defines=defines)[0])))
-
-
-def builds(baseline: str | None, profile: bool) -> dict:
-    """name -> x = f(A, b) for this build, the baseline and the profiled
-    build (nvcc runs in parallel)."""
-    todo = {"kernel": ("tsqr", None, ())}
-    if baseline:
-        todo["baseline"] = ("tsqr_baseline", baseline, ())
-    if profile:
-        todo["profile"] = ("tsqr", None, ("TSQR_PROFILE",))
-    with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
-        paths = dict(zip(todo, pool.map(lambda a: _build.build(*a)[0], todo.values())))
-    out = {"kernel": _caller(_lib())}
-    if baseline:
-        old = ctypes.CDLL(str(paths["baseline"]))
-        old.bmpc_tsqr_ls_solve_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        old.bmpc_tsqr_ls_solve_f32.restype = ctypes.c_int
-        out["baseline"] = _caller(old, current=False)
-    return out
-
-
 def _inputs(shape):
     B, m, n = shape
     rng = np.random.default_rng(0)
@@ -119,18 +74,27 @@ def _inputs(shape):
 
 def profile(shape=SHAPES[0]) -> dict:
     """Block 0's cycle stamps from the -DTSQR_PROFILE build at ``shape``."""
-    lib = _lib(("TSQR_PROFILE",))
+    lib = tsqr.bind(ctypes.CDLL(str(_build.build("tsqr", defines=("TSQR_PROFILE",))[0])))
     lib.bmpc_tsqr_profile.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.bmpc_tsqr_profile.restype = ctypes.c_int
     A, b = _inputs(shape)
-    f = _caller(lib)
-    f(A, b)
+    B, m, n = shape
+    x = torch.empty((B, n), dtype=torch.float32, device="cuda")
+
+    def solve():
+        err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, m, n,
+                                         tsqr.chunk_rows(m, n),
+                                         torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+
+    solve()
     buf = (ctypes.c_longlong * (8 + 128 * 17))()
     warps = lib.bmpc_tsqr_profile(buf, len(buf))
     if warps < 0:
         raise RuntimeError(f"profile read failed: CUDA error {-warps}")
     st = np.array(buf[:], dtype=np.int64)
-    steps = min((shape[2] + 1) // 2, 128)
+    steps = min((n + 1) // 2, 128)
     release = st[8:8 + steps * (warps + 1)].reshape(steps, warps + 1)[:, warps]
     step = np.diff(np.concatenate([[st[1]], release]))
     cuts = [0, steps // 4, steps // 2, 3 * steps // 4, steps]
@@ -139,29 +103,22 @@ def profile(shape=SHAPES[0]) -> dict:
         "cycles": {"load": int(st[1] - st[0]), "fold": int(st[2] - st[1]),
                    "back_substitution": int(st[3] - st[2]), "total": int(st[3] - st[0])},
         "step_cycles_by_quarter": [float(step[a:b].mean()) for a, b in zip(cuts, cuts[1:])],
-        "kernel_ms": cuda_ms(lambda: f(A, b)),
+        "kernel_ms": cuda_ms(solve),
     }
 
 
-def compare(shape, fns: dict) -> dict:
+def timing(shape) -> dict:
+    """The kernel's time at ``shape`` (two runs of REPS launches) beside its bound."""
     A, b = _inputs(shape)
-    ref = fns["kernel"](A, b)
-    diff = {k: float((f(A, b) - ref).abs().max()) for k, f in fns.items()}
-    names = list(fns)
-    ms = {k: [] for k in names}
-    for order in (names, names[::-1]):
-        for k in order:
-            ms[k].append(cuda_ms(lambda f=fns[k]: f(A, b)))
+    ms = [cuda_ms(lambda: tsqr.ls_solve(A, b)) for _ in range(2)]
     bound, by = bound_ms(*shape)
     return {"shape": list(shape), "rows_per_chunk": tsqr.chunk_rows(*shape[1:]),
-            "bound_ms": bound, "bound_by": by, "ms": ms, "max_abs_diff_vs_kernel": diff}
+            "bound_ms": bound, "bound_by": by, "ms": ms}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", help="a kernel source with the earlier C interface")
     ap.add_argument("--profile", action="store_true", help="also report the cycle profile")
-    ap.add_argument("--out", help="also write the JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tsqr_bench: no CUDA device", file=sys.stderr)
@@ -169,17 +126,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    fns = builds(args.baseline, args.profile)
-    lines = []
     if args.profile:
-        lines.append(json.dumps({"profile": profile()}))
-        print(lines[-1], flush=True)
+        print(json.dumps({"profile": profile()}), flush=True)
     for shape in SHAPES:
-        lines.append(json.dumps(compare(shape, fns)))
-        print(lines[-1], flush=True)
-    if args.out:
-        with open(args.out, "w") as fh:
-            fh.write("\n".join(lines) + "\n")
+        print(json.dumps(timing(shape)), flush=True)
     return 0
 
 
