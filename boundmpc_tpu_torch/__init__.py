@@ -4,11 +4,14 @@ Cartesian path-following MPC for a 7-DOF manipulator, batched over fleets of
 scenarios: kinematics, Lie-space path errors, quartic bound envelopes, the
 condensed OCP, the relaxed-barrier Gauss-Newton solver (its least-squares
 step a hand-written Hopper kernel, ``ops/tsqr.py``), the receding-horizon
-engine and the stream executor.  The JAX package stays the reference; this
-package imports torch and never jax.
+engine, the stream executor, and the serving entry points: ``FleetRunner``
+and ``ClosedLoopRunner`` (``runtime``) and the reference-compatible
+``api.BoundMPC``.  The JAX package stays the reference; this package imports
+torch and never jax.
 """
 
 __version__ = "0.1.0"
 
 from . import lie, kinematics, jerkint, bounds, path, ocp, jacobian  # noqa: F401
 from . import solver, engine, batch, stream, convert  # noqa: F401
+from . import runtime, api  # noqa: F401

@@ -6,11 +6,19 @@ executors here run each control tick to completion for the whole batch
 """
 from __future__ import annotations
 
+from typing import List
+
 import torch
 from torch.func import vmap
 
 from . import engine, jerkint, kinematics, ocp, solver as solver_mod
+from ._tree import tree_map
 from .path import PathData
+
+
+def stack_paths(paths: List[PathData]) -> PathData:
+    """Stack same-capacity PathData along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *paths)
 
 
 def _constants(cfg: ocp.OcpConfig, dtype, device):

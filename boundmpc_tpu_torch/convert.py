@@ -4,7 +4,10 @@ A JAX-package NamedTuple arrives as a dict of numpy arrays (``._asdict()``
 with ``np.asarray`` on each leaf; nested NamedTuples may stay NamedTuples or
 be dicts themselves) and leaves as the port's NamedTuple of the same name on
 the requested device: floating leaves in ``dtype``, integer leaves int32,
-booleans bool.  ``to_numpy`` goes the other way for comparisons.
+booleans bool.  A ``RunLog`` arrives as its ``arrays()`` dict and leaves as
+the port's RunLog of host series.  ``to_numpy`` goes the other way for
+comparisons.  JAX-format fleet checkpoints need no conversion:
+``engine.load_state_dump`` reads them as they are.
 """
 from __future__ import annotations
 
@@ -12,12 +15,15 @@ import numpy as np
 import torch
 
 from .engine import EngineState
+from .jacobian import LinearJacs, StageJacPieces
 from .ocp import OcpParams
 from .path import PathData
+from .runtime.runner import RunLog
 from .solver import LoopState, QrPrefactor, StepCtx
 
 TYPES = {cls.__name__: cls for cls in
-         (EngineState, PathData, QrPrefactor, OcpParams, LoopState, StepCtx)}
+         (EngineState, PathData, QrPrefactor, OcpParams, LoopState, StepCtx,
+          LinearJacs, StageJacPieces)}
 # Fields holding a nested NamedTuple, by (type name, field) -> nested type name.
 _NESTED = {("StepCtx", "params"): "OcpParams"}
 
@@ -40,6 +46,8 @@ def _leaf(v, device, dtype) -> torch.Tensor:
 def from_numpy(name: str, d, *, device="cuda", dtype=torch.float64):
     """The port's NamedTuple ``name`` from the dict ``d`` of arrays, on
     ``device`` (the card unless the caller asks for the CPU)."""
+    if name == "RunLog":
+        return RunLog(**{k: list(np.asarray(v)) for k, v in _fields(d).items()})
     cls = TYPES[name]
     d = _fields(d)
     vals = []

@@ -10,13 +10,15 @@ least-squares step is one kernel launch for all lanes).
 The known faults of the JAX reference on this path are reproduced, not
 fixed, so the two packages stay comparable: the deep cold restart re-seeds
 on every tick while ``ladder_hold`` holds ``error_count`` at 2 (presolve),
-the soft budget counts rejected line-search steps (solver), and
-``converged`` includes give-up exits (solver.finish).
+the soft budget counts rejected line-search steps (solver), ``converged``
+includes give-up exits (solver.finish), and ``load_state_dump`` counts every
+key that starts with ``s`` as a state leaf.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -65,6 +67,23 @@ class TickOut(NamedTuple):
     u: torch.Tensor  # (N, 8) executed plan
 
 
+def load_state_dump(template: EngineState, npz) -> EngineState:
+    """Rebuild a batched EngineState from a ``{"s0": leaf0, ...}`` state dump
+    (a fleet checkpoint: ``np.load`` of an ``.npz``), on the template's
+    device.  The leaves are EngineState's fields in order, the same in both
+    packages, so either package's checkpoints load into the other.  A dump
+    from before a trailing field was added is padded with the template's
+    value for that field.  Reference fault kept for parity: every key that
+    starts with ``s`` counts as a leaf."""
+    tpl = list(template)
+    n_files = len([k for k in npz.files if k.startswith("s")])
+    dev = template.q.device
+    leaves = [torch.as_tensor(np.asarray(npz[f"s{i}"]), device=dev) for i in range(n_files)]
+    if len(leaves) < len(tpl):
+        leaves = leaves + tpl[len(leaves):]
+    return EngineState(*leaves)
+
+
 def full_f32_matmuls() -> None:
     """Full float32 matmuls on the card (no TF32), the counterpart of the
     JAX package's ``default_matmul_precision("float32")``: the solver's
@@ -97,6 +116,59 @@ def init_state(cfg: ocp.OcpConfig, q0: torch.Tensor, dtype=torch.float32) -> Eng
         dead=torch.zeros((), dtype=torch.bool, device=dev),
         reg_warm=z,  # 0 = "no carried damping"
         viol_prev=z,
+    )
+
+
+def replan_state(cfg: ocp.OcpConfig, state: EngineState, new_path: PathData
+                 ) -> EngineState:
+    """Re-anchor one lane's engine state onto a new path mid-run.
+
+    phi is the projection of the current EE position onto the new first
+    segment, clamped into it; dphi/ddphi/dddphi project the Cartesian
+    velocity/acceleration/jerk onto the new direction, and restart at rest
+    when the motion opposes it (the path parameter never runs backward).
+    The rotation reference is re-integrated from the new first via.  The
+    warm start keeps its joint columns with the path-jerk column zeroed, and
+    doubles as the safe plan; ``has_prev`` is cleared so that a failed first
+    solve executes its own plan instead of the old path's."""
+    q, dq, ddq = state.q, state.dq, state.ddq
+    pose = kinematics.fk_pose(q)
+    J = kinematics.jacobian(q)
+    dJ = kinematics.djacobian(q, dq)
+    ddJ = kinematics.ddjacobian(q, dq, ddq)
+    v = J @ dq
+    a = J @ ddq + dJ @ dq
+    j_cart = J @ state.jerk + dJ @ ddq + ddJ @ dq
+
+    dp0 = new_path.seg_dp[0]
+    phi_new = torch.dot(pose[:3] - new_path.seg_p0[0], dp0)
+    seg0_len = new_path.seg_len[0]
+    phi_new = torch.minimum(torch.clamp(phi_new, min=0.0),
+                            torch.clamp(seg0_len - 0.01, min=0.0))
+    dphi_proj = torch.dot(v[:3], dp0)
+    fwd = dphi_proj > 0.0
+    zero = torch.zeros_like(dphi_proj)
+    dphi_new = torch.where(fwd, dphi_proj, zero)
+    ddphi_new = torch.where(fwd, torch.dot(a[:3], dp0), zero)
+    dddphi_new = torch.where(fwd, torch.dot(j_cart[:3], dp0), zero)
+
+    pr_ref = lie.integrate_rotation_reference(
+        new_path.via_rotvec[0], new_path.seg_dr[0], torch.zeros_like(phi_new), phi_new)
+    iw_ref = new_path.seg_iw[0] + phi_new * new_path.seg_dr[0]
+
+    nj = cfg.nr_joints
+    u_warm = torch.cat([state.u_warm[:, :nj], torch.zeros_like(state.u_warm[:, nj:nj + 1]),
+                        state.u_warm[:, nj + 1:]], dim=1)
+    return state._replace(
+        phi=phi_new, dphi=dphi_new, ddphi=ddphi_new, dddphi=dddphi_new,
+        pr_ref=pr_ref, iw_ref=iw_ref,
+        sector=torch.zeros_like(state.sector),
+        u_warm=u_warm,
+        u_safe=u_warm,
+        has_prev=torch.zeros_like(state.has_prev),
+        error_count=torch.zeros_like(state.error_count),
+        reg_warm=torch.zeros_like(state.reg_warm),
+        viol_prev=torch.zeros_like(state.viol_prev),
     )
 
 

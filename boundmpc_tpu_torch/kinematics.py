@@ -121,19 +121,33 @@ def fk_pose(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([origins[-1], matrix_to_rotvec(R)])
 
 
-def jacobian(q: torch.Tensor) -> torch.Tensor:
-    """Spatial geometric Jacobian (6, 7): rows 0-2 linear, 3-5 angular."""
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b along the last axis, written out.  Under an unbatched float32
+    ``jvp``, PyTorch's forward mode can give the sum of two 0-dim tensors a
+    float64 tangent; ``torch.linalg.cross`` refuses the mixed dtypes, this
+    product promotes, and ``djacobian`` casts its result back."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def _jacobian(q: torch.Tensor, cross) -> torch.Tensor:
     origins, axes, _ = joint_frames(q)
     p_ee = origins[-1]
-    jv = torch.linalg.cross(axes, p_ee[None, :] - origins[:-1], dim=-1)  # (7, 3)
+    jv = cross(axes, p_ee[None, :] - origins[:-1])  # (7, 3)
     return torch.cat([jv.T, axes.T], dim=0)
+
+
+def jacobian(q: torch.Tensor) -> torch.Tensor:
+    """Spatial geometric Jacobian (6, 7): rows 0-2 linear, 3-5 angular."""
+    return _jacobian(q, lambda a, b: torch.linalg.cross(a, b, dim=-1))
 
 
 def djacobian(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
     """dJ/dt (6, 7) via forward-mode AD."""
-    return jvp(jacobian, (q,), (dq,))[1]
+    return jvp(lambda x: _jacobian(x, _cross), (q,), (dq,))[1].to(q.dtype)
 
 
 def ddjacobian(q: torch.Tensor, dq: torch.Tensor, ddq: torch.Tensor) -> torch.Tensor:
     """d^2J/dt^2 (6, 7) = (d(dJ)/dq) dq + (d(dJ)/d(dq)) ddq."""
-    return jvp(djacobian, (q, dq), (dq, ddq))[1]
+    return jvp(djacobian, (q, dq), (dq, ddq))[1].to(q.dtype)

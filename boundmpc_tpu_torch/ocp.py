@@ -215,17 +215,25 @@ def rollout(cfg: OcpConfig, coeffs: jerkint.JerkCoeffs, params: OcpParams,
 # Stage reference / error evaluation
 # ---------------------------------------------------------------------------
 
+def _row(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 0-d index tensor, gathered with a 1-d index: a 0-d
+    tensor index is read back to the host as a Python int, which fails under
+    ``torch.func`` transforms that do not batch it (the per-stage ``jacfwd``
+    of the structured Jacobian) and costs a sync on the card."""
+    return a[i.reshape(1)][0]
+
+
 def stage_reference(cfg: OcpConfig, params: OcpParams, phi: torch.Tensor) -> RefData:
     """Reference quantities of one stage at path parameter ``phi``."""
     seg = segment_index(phi, params.phi_switch, cfg.nr_segs)
-    phi_start = params.phi_switch[seg]
-    dp_d = params.dp_ref[seg]
-    p_ref_c = params.p_ref[seg]
+    phi_start = _row(params.phi_switch, seg)
+    dp_d = _row(params.dp_ref, seg)
+    p_ref_c = _row(params.p_ref, seg)
     p_d = dp_d * (phi - phi_start) + p_ref_c
 
     # Quartic bound evaluation; acoef rows align with window segments.
     local = phi - phi_start
-    coef = params.acoef[seg]  # (9, 5)
+    coef = _row(params.acoef, seg)  # (9, 5)
     vals = quartic_eval(local, coef)  # (9,)
     p_e_bound = vals[0:4]  # [upper x2, lower x2]
     r_e_bound = vals[4:8]
@@ -241,14 +249,14 @@ def stage_reference(cfg: OcpConfig, params: OcpParams, phi: torch.Tensor) -> Ref
     return RefData(
         p_d=p_d,
         dp_d=dp_d,
-        dp_normed_d=params.dp_normed[seg],
-        bp1=params.bp1[bp_seg],
-        bp2=params.bp2[bp_seg],
-        br1=params.br1[seg],
-        br2=params.br2[seg],
-        v1=params.v1[seg],
-        v2=params.v2[seg],
-        v3=params.v3[seg],
+        dp_normed_d=_row(params.dp_normed, seg),
+        bp1=_row(params.bp1, bp_seg),
+        bp2=_row(params.bp2, bp_seg),
+        br1=_row(params.br1, seg),
+        br2=_row(params.br2, seg),
+        v1=_row(params.v1, seg),
+        v2=_row(params.v2, seg),
+        v3=_row(params.v3, seg),
         bound_lower=bound_lower,
         bound_upper=bound_upper,
         r_par_bound=r_par_bound,
@@ -277,9 +285,9 @@ def stage_error(cfg: OcpConfig, params: OcpParams, ref: RefData, p: torch.Tensor
     de_r = params.jac_dtau_l @ v[3:] - params.jac_dtau_r @ (ref.dp_d[3:] * dphi)
 
     seg = segment_index(phi, params.phi_switch, cfg.nr_segs)
-    e_par_init = params.dtau_init_par[seg]
-    e_orth1_init = params.dtau_init_orth1[seg]
-    e_orth2_init = params.dtau_init_orth2[seg]
+    e_par_init = _row(params.dtau_init_par, seg)
+    e_orth1_init = _row(params.dtau_init_orth1, seg)
+    e_orth2_init = _row(params.dtau_init_orth2, seg)
 
     diff = e_r - params.dtau_init
     scal_orth1 = torch.dot(diff, ref.v1)

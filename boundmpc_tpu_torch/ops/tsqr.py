@@ -44,6 +44,20 @@ def chunk_rows(m: int, n: int) -> int:
     return min(MAX_CHUNK_ROWS, (free // n1 - 2) // 64 * 64, -(-m // 64) * 64)
 
 
+def serving_dtype(device, dtype=None) -> torch.dtype:
+    """The float dtype an entry point serves in on ``device``: float32 on a
+    CUDA device (the kernel takes nothing else) and float64 on the CPU when
+    ``dtype`` is None.  float64 on a CUDA device raises: float64 is the CPU
+    parity path, and the card runs the kernel."""
+    cuda = torch.device(device).type == "cuda"
+    if dtype is None:
+        return torch.float32 if cuda else torch.float64
+    if cuda and dtype != torch.float32:
+        raise ValueError(f"{dtype} on {device} is not served: the card runs the float32 "
+                         "ls_solve kernel; float64 is the CPU parity path (device='cpu')")
+    return dtype
+
+
 def ls_solve_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: Householder QR per scenario.  A (..., m, n), b (..., m)
     -> x (..., n)."""

@@ -1,8 +1,8 @@
 """Scenario definitions: via-point paths, bounds, weights, initial states
 (port of ``boundmpc_tpu/runtime/scenarios.py``; host numpy + scipy).
 
-The two named experiments, the default weights and `random_scenario` are
-those of the JAX package, so both packages build identical fleets from the
+The two named experiments, the default weights, `default_path` and
+`random_scenario` are those of the JAX package, so both packages build identical fleets from the
 same `numpy.random.default_rng` seed.
 """
 from __future__ import annotations
@@ -167,6 +167,27 @@ def experiment2() -> Scenario:
         name="experiment2", q0=q0, p_via=p_via, r_via=r_via,
         p_lower=p_lower, p_upper=p_upper, r_lower=r_lower, r_upper=r_upper,
         bp1=bp1, br1=br1,
+    )
+
+
+def default_path(q0: np.ndarray | None = None, nr_segs: int = 2) -> Scenario:
+    """The reference's degenerate hold-in-place path: ``max(nr_segs, 2)``
+    copies of the pose at ``q0`` as via points, with wide-open bounds."""
+    q0 = np.zeros(7) if q0 is None else np.asarray(q0, float)
+    pose0 = _pose0(tuple(q0))
+    p0 = pose0[:3]
+    r0 = R.from_rotvec(pose0[3:]).as_matrix()
+    n_via = max(nr_segs, 2)
+    neg, ones, r_lower, r_upper, bp1, br1 = _default_lists(n_via)
+    return Scenario(
+        name="default-path", q0=q0,
+        p_via=[p0.copy() for _ in range(n_via)],
+        r_via=[r0.copy() for _ in range(n_via)],
+        p_lower=neg, p_upper=ones, r_lower=r_lower, r_upper=r_upper,
+        bp1=bp1, br1=br1,
+        s=0.0, e_p_min=0.01, e_r_min=15 * np.pi / 180,
+        e_p_max=0.2, e_r_max=45 * np.pi / 180,
+        nr_segs=nr_segs,
     )
 
 

@@ -60,7 +60,8 @@ class SolverConfig(NamedTuple):
     mu_shift: float = 1e-4
     # Execution gate for near-feasible failing solves (engine fallback).
     viol_exec: float = 3e-2
-    # Jacobian computation: "structured" (not ported yet) or "ad".
+    # Jacobian computation: "structured" (per-stage jacfwd + constant-map
+    # assembly) or "ad" (one 80-tangent forward sweep).
     jac: str = "structured"
     # Carry the final LM damping across warm non-shock ticks.
     carry_reg: bool = False
@@ -107,6 +108,11 @@ class SolveStats(NamedTuple):
     viol: torch.Tensor  # () total constraint violation (reference metric)
     step_inf: torch.Tensor | None = None  # () last accepted |du|_inf
     reg_final: torch.Tensor | None = None  # () final Levenberg damping
+    # () int32 loop iterations of the solve that produced this result, one
+    # ls_solve launch each: the lane's own iterations from ``finish``, the
+    # batch's loop count (the same on every lane) from ``solve``.  Not in
+    # the JAX package, whose loop runs inside one compiled program.
+    n_loop: torch.Tensor | None = None
 
 
 class LoopState(NamedTuple):
@@ -220,18 +226,63 @@ def init_loop(scfg: SolverConfig, u0: torch.Tensor, mu0=None, reg0=None
     )
 
 
+def _dyn_rows(cfg: ocp.OcpConfig) -> np.ndarray:
+    """Rows of the 18 state-dependent residuals (e_p 3, e_r 3, v 6, a 6) of
+    each stage in ocp.residuals' layout; the other 4*nj + 4 rows per stage
+    are affine in u."""
+    blk = 18 + 4 * cfg.nr_joints + 4
+    return (np.arange(cfg.N)[:, None] * blk + np.arange(18)[None, :]).ravel()
+
+
+def make_reduced_jacobians(cfg: ocp.OcpConfig, scfg: SolverConfig,
+                           coeffs: jerkint.JerkCoeffs,
+                           limits: kinematics.RobotLimits, dtype):
+    """Per lane ``(u_flat, params) -> (r, c, Jr_dyn (18N, n), Jc_nl (5N, n))``:
+    the values of every row and the Jacobians of the FK-coupled rows only,
+    by ``scfg.jac`` ("structured" or "ad")."""
+    N, nu = cfg.N, cfg.nr_joints + 1
+    dev = coeffs.t.device
+    if scfg.jac == "structured":
+        lmaps = jmod.linear_maps(cfg, dtype, dev)
+
+        def structured(u, params):
+            return jmod.reduced_jacobians(
+                cfg, coeffs, lmaps, params, u.reshape(N, nu), limits,
+                scaled=scfg.scale_constraints, margin=scfg.margin)
+
+        return structured
+    if scfg.jac != "ad":
+        raise ValueError(f"unknown jac={scfg.jac!r}")
+    eye_n = torch.eye(N * nu, dtype=dtype, device=dev)
+    dyn_idx = torch.as_tensor(_dyn_rows(cfg), device=dev)
+    n_nl = 5 * N
+
+    def rc(u_flat, params):
+        return ocp.residuals_and_constraints(
+            cfg, coeffs, params, u_flat.reshape(N, nu), limits,
+            scaled=scfg.scale_constraints, margin=scfg.margin)
+
+    def ad(u, params):
+        r, c = rc(u, params)
+        # One forward-mode sweep for both Jacobians: n tangents.
+        Jr, Jc = vmap(lambda t: jvp(lambda v: rc(v, params), (u,), (t,))[1],
+                      out_dims=(1, 1))(eye_n)
+        return r, c, Jr[dyn_idx], Jc[:n_nl]
+
+    return ad
+
+
 def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
                  coeffs: jerkint.JerkCoeffs, limits: kinematics.RobotLimits,
                  dtype):
     """Build ``step(st: LoopState, ctx: StepCtx) -> LoopState`` — ONE damped
     Gauss-Newton iteration for a BATCH of lanes (leading axis): KKT step via
     QR least squares, parallel Armijo line search, LM damping, mu
-    continuation and convergence logic.  Only ``method="qr"`` with
-    ``jac="ad"`` is ported."""
+    continuation and convergence logic.  ``method="qr"`` only; the
+    Jacobians by ``jac="structured"`` (per-stage jacfwd chained through the
+    constant maps) or ``jac="ad"`` (one 80-tangent forward sweep)."""
     if scfg.method != "qr":
         raise NotImplementedError(f"step method {scfg.method!r} is not ported")
-    if scfg.jac != "ad":
-        raise NotImplementedError(f"jac={scfg.jac!r} is not ported; use jac='ad'")
     N, nu = cfg.N, cfg.nr_joints + 1
     n = N * nu
     dev = coeffs.t.device
@@ -248,13 +299,7 @@ def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
 
     ls_alphas = scfg.ls_decay ** torch.arange(scfg.n_ls, dtype=dtype, device=dev)
     eye_n = torch.eye(n, dtype=dtype, device=dev)
-
-    def _jacobians_full(u, params):
-        r, c = rc(u, params)
-        # One forward-mode sweep for both Jacobians: n tangents.
-        Jr, Jc = vmap(lambda t: jvp(lambda v: rc(v, params), (u,), (t,))[1],
-                      out_dims=(1, 1))(eye_n)
-        return r, c, Jr, Jc
+    _jacobians_reduced = make_reduced_jacobians(cfg, scfg, coeffs, limits, dtype)
 
     # --- exact row reduction for the QR stack ------------------------------
     # Per stage: 18 state-dependent residual rows (e_p 3, e_r 3, v 6, a 6),
@@ -262,9 +307,7 @@ def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
     # (R0 u + Q0^T c_lin reproduces Q0^T r_lin exactly); upper/lower box
     # pairs merge into single rows with weight w_up + w_lo.  m = 550.
     nj = cfg.nr_joints
-    blk = 18 + 4 * nj + 4
-    dyn_idx = torch.as_tensor(
-        (np.arange(N)[:, None] * blk + np.arange(18)[None, :]).ravel(), device=dev)
+    dyn_idx = torch.as_tensor(_dyn_rows(cfg), device=dev)
     nlN, qN, phiN = 5 * N, nj * N, N
     s_nl = slice(0, nlN)
     s_qup = slice(nlN, nlN + qN)
@@ -279,11 +322,6 @@ def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
     s_ulo = slice(off + 3 * phiN + n, off + 3 * phiN + 2 * n)
 
     Jq0, Jdq0, Jphi0, Jdphi0 = jmod.box_jacobians(cfg, dtype, dev)
-
-    def _jacobians_reduced(u, params):
-        """(r, c, Jr_dyn (18N, n), Jc_nl (5N, n))."""
-        r, c, Jr, Jc = _jacobians_full(u, params)
-        return r, c, Jr[dyn_idx], Jc[s_nl]
 
     def assemble(st: LoopState, ctx: StepCtx):
         """Per lane: the stacked weighted system (A, b) and the gradient.
@@ -474,7 +512,7 @@ def finish(cfg: ocp.OcpConfig, coeffs: jerkint.JerkCoeffs,
     viol = torch.sum(torch.where(cfin > 1e-6, cfin, torch.zeros_like(cfin)))
     return u_opt, SolveStats(iters=out.k, converged=out.done, obj=obj,
                              viol=viol, step_inf=out.last_step,
-                             reg_final=out.reg)
+                             reg_final=out.reg, n_loop=out.k)
 
 
 def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
@@ -487,7 +525,9 @@ def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
     Lanes iterate together while any lane is unfinished; a finished lane's
     state is held (the semantics of the JAX package's vmapped while_loop).
     ``mu0`` / ``reg0`` (B,) override the initial barrier weight / damping;
-    ``pref`` is the batched setup-time QR prefactor (None factors here)."""
+    ``pref`` is the batched setup-time QR prefactor (None factors here).
+    ``stats.n_loop`` holds the number of loop iterations run, which is the
+    number of ls_solve launches."""
     dtype = u0.dtype
     if pref is None:
         ctx = vmap(lambda p: make_ctx(cfg, coeffs, p, None, dtype))(params)
@@ -498,9 +538,12 @@ def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
     st = vmap(lambda u, m, g: init_loop(scfg, u, m, g),
               in_dims=(0, None if mu0 is None else 0, None if reg0 is None else 0)
               )(u0, mu0, reg0)
+    n_loop = 0
     while True:
         live = (~st.done) & (st.k < scfg.max_iters)
         if not bool(live.any()):
             break
         st = tree_where(live, step(st, ctx), st)
-    return vmap(lambda p, s: finish(cfg, coeffs, p, limits, s))(params, st)
+        n_loop += 1
+    u_opt, stats = vmap(lambda p, s: finish(cfg, coeffs, p, limits, s))(params, st)
+    return u_opt, stats._replace(n_loop=torch.full_like(stats.n_loop, n_loop))

@@ -6,21 +6,37 @@
 Phases (any failure exits nonzero and prints no result line):
   1. device and library facts (card name and power limit as nvidia-smi
      reports them, torch / CUDA versions, float32 matmul settings);
-  2. build (or load) the hand-written CUDA kernel from the checkout;
+  2. build (or load) the native libraries from the checkout, in parallel:
+     the hand-written CUDA kernel (nvcc) and the telemetry sink (g++);
   3. the kernel against its plain PyTorch version on the card, float32, at
      six shapes (TSQR_SHAPES: the main path's (256, 550, 80) and others that
-     take several chunks, ragged rows, the widest n): random rows (2e-4
-     abs/rel) and ill-conditioned weighted rows (5e-3 relative to a float64
-     lstsq); and at (256, 550, 80) and (1024, 550, 80) the kernel, the plain version and one
-     library call (torch.linalg.lstsq) timed in turns, beside the kernel's
-     bound;
-  4. the main path: a B = 256 fleet through the float32 stream executor
-     under RUNTIME_F32 from rest, gated on success >= 0.99 over live
-     lane-ticks, no dead lane, finite violations, phi > 0 on every lane, and
-     one kernel launch per loop iteration;
+     take several chunks, ragged rows, the widest n, one scenario): random
+     rows (2e-4 abs/rel) and ill-conditioned weighted rows (5e-3 relative to
+     a float64 lstsq); and at TIMED_SHAPES the kernel, the plain version and
+     one library call (torch.linalg.lstsq) timed in turns, beside the
+     kernel's bound;
+  4. the main path: a B = 256 fleet through ``FleetRunner.run_stream`` (the
+     stream executor) under RUNTIME_F32 from rest, with the telemetry sink
+     on, gated on success >= 0.99 over live lane-ticks, no dead lane, finite
+     violations, phi > 0 on every lane, and one kernel launch per loop
+     iteration; the telemetry log read back holds B x K records whose
+     success column is the executor's;
   5. the same executor on a small fleet in float32 on the card against the
      port in float64 on the CPU (same success pattern, plant state within
-     the float32 bounds the JAX package holds its own executors to).
+     the float32 bounds the JAX package holds its own executors to);
+  6. the lockstep fleet: the same B = 256 fleet through ``FleetRunner.run``
+     with the MPCData log on (success >= 0.99, no dead lane, finite
+     violations, kernel launches == the batched solves' loop iterations,
+     one MPCData record per lane-tick), then a checkpoint round trip that
+     must reproduce the fleet's state bit for bit;
+  7. one robot: ``ClosedLoopRunner`` (B = 1 through the kernel) on
+     experiment1 for SINGLE_TICKS ticks under the JAX package's own float32
+     gates, then a replan onto experiment2 under its replan gates, and the
+     ``api.BoundMPC`` facade for API_STEPS steps with the reference calling
+     pattern (key layout, shapes, success on every step);
+  8. the structured Jacobian against the AD Jacobian on the card at a warm
+     state of the phase-6 fleet (float32, relative error <= JAC_TOL), both
+     timed at B = 256, with the aten op count of one GN step under each.
 Then one JSON line describing the kernels, and last the device JSON line.
 """
 import json
@@ -28,20 +44,33 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
 B_MAIN = 256
-K_CHUNK = 20  # ticks per stream call
-N_CHUNKS = 1
+K_MAIN = 20  # stream ticks, one executor call
 B_SMALL, K_SMALL = 4, 4
 # Phase 3: the main path's shape, a larger batch, several chunks, ragged rows
 # with a small n, the widest n the kernel takes, one scenario.
 TSQR_SHAPES = ((256, 550, 80), (1024, 550, 80), (7, 1100, 80), (5, 173, 10),
                (3, 700, 127), (1, 550, 80))
-TIMED_SHAPES = ((256, 550, 80), (1024, 550, 80))
+TIMED_SHAPES = ((256, 550, 80), (1024, 550, 80), (1, 550, 80))
 TIMING_REPS = 20
 PLAIN_REPS = 5
+LOCKSTEP_TICKS = 3
+SINGLE_TICKS = 30  # experiment1, the JAX package's float32 closed-loop gates
+# Then experiment2 after a replan, under the replan contract of
+# tests/test_engine.py (held there in float64 over 15 ticks).  In float32 the
+# JAX package itself holds it over the first 12 ticks and fails ticks 13-14
+# (tests/jax_replan_f32.py), so the window here is 10 ticks.
+REPLAN_TICKS = 10
+API_STEPS = 10
+# Structured vs AD Jacobian, float32, relative to the largest entry: the two
+# agree to 1.8e-7 in float32 and 3.5e-16 in float64 on the CPU.
+JAC_TOL = 1e-5
+OUT = Path(__file__).resolve().parent / "build" / "boundmpc_tpu_torch" / "smoke"
 
 
 def fail(msg: str) -> None:
@@ -68,9 +97,13 @@ def phase_facts(torch, engine):
 
 
 def phase_build(_build):
-    path, seconds = _build.build("tsqr")
-    log(f"build: {path.name} " + (f"compiled in {seconds:.1f} s" if seconds else "cached"))
-    for line in path.with_suffix(".ptxas").read_text().splitlines():
+    """Both native libraries, compiled side by side."""
+    names = ("tsqr", "telemetry")
+    with ThreadPoolExecutor(len(names)) as ex:
+        built = dict(zip(names, ex.map(_build.build, names)))
+    for name, (path, seconds) in built.items():
+        log(f"build: {path.name} " + (f"compiled in {seconds:.1f} s" if seconds else "cached"))
+    for line in built["tsqr"][0].with_suffix(".ptxas").read_text().splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
 
@@ -130,8 +163,8 @@ def phase_kernel(torch, tsqr, bench):
                             bound_share=bound / mean["kernel"])
         log(f"tsqr time at {shape}: kernel {ms['kernel'][0]:.4f} / {ms['kernel'][1]:.4f} ms, "
             f"plain {ms['plain'][0]:.4f} / {ms['plain'][1]:.4f} ms, torch.linalg.lstsq "
-            f"{ms['library'][0]:.4f} / {ms['library'][1]:.4f} ms, bound {bound:.4f} ms "
-            f"({by}), kernel at {100 * bound / mean['kernel']:.1f}% of the bound "
+            f"{ms['library'][0]:.4f} / {ms['library'][1]:.4f} ms, bound {bound:.3e} ms "
+            f"({by}), kernel at {100 * bound / mean['kernel']:.2f}% of the bound "
             f"(CUDA events, {TIMING_REPS} / {PLAIN_REPS} reps)")
 
     try:
@@ -143,44 +176,36 @@ def phase_kernel(torch, tsqr, bench):
     return timed
 
 
-def phase_main_path(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr):
+def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
     t0 = time.perf_counter()
-    states, paths, weights, x_phi_d = build_fleet(B_MAIN, cfg, "cuda", torch.float32)
-    pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=torch.float32)
-    fn = stream_mod.make_stream_ticks(cfg, scfg, K_CHUNK, dtype=torch.float32, device="cuda")
+    tele = OUT / "stream_telemetry.bin"
+    fleet = runtime.FleetRunner(runtime.fleet_scenarios(B_MAIN), solver_cfg=scfg,
+                                dtype=torch.float32, telemetry_path=str(tele), device="cuda")
     torch.cuda.synchronize()
     log(f"main path: fleet B={B_MAIN} built in {time.perf_counter() - t0:.1f} s")
 
-    prev_dead = states.dead.cpu().numpy()
-    succ, viol, iters, dead, times = [], [], [], [], []
-    n_loop = 0
+    prev_dead = fleet.states.dead.cpu().numpy()
     tsqr.ls_solve.launches = 0
-    for ci in range(N_CHUNKS):
-        t0 = time.perf_counter()
-        states, so = fn(states, paths, weights, x_phi_d, pref)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        n_loop += so.n_loop
-        succ.append(so.success.cpu().numpy())
-        viol.append(so.viol.cpu().numpy())
-        iters.append(so.iters.cpu().numpy())
-        dead.append(so.dead.cpu().numpy())
-        log(f"main path chunk {ci}: {K_CHUNK} ticks in {times[-1]:.2f} s, n_loop {so.n_loop}")
+    t0 = time.perf_counter()
+    stats = fleet.run_stream(ticks=K_MAIN, chunk=K_MAIN)
+    total = time.perf_counter() - t0
     launches = tsqr.ls_solve.launches
+    fleet.close()
+    so = fleet.stream_out
 
-    succ, viol, iters, dead = (np.concatenate(x) for x in (succ, viol, iters, dead))
+    succ, viol, iters, dead = (x.cpu().numpy() for x in (so.success, so.viol, so.iters,
+                                                         so.dead))
     live = ~np.concatenate([prev_dead[None, :], dead[:-1]], axis=0)
-    ticks = N_CHUNKS * K_CHUNK
-    total = float(np.sum(times))
     success = float(succ[live].mean())
     max_viol = float(viol[live].max())
     n_dead = int(dead[-1].sum())
-    phi = states.phi.cpu().numpy()
-    log(f"main path: {B_MAIN * ticks / total:.1f} solves/s, {1e3 * total / ticks:.1f} ms "
-        f"wall per tick, n_loop {n_loop}, kernel launches {launches}, iters mean "
+    phi = fleet.states.phi.cpu().numpy()
+    log(f"main path: {B_MAIN * K_MAIN / total:.1f} solves/s, {1e3 * total / K_MAIN:.1f} ms "
+        f"wall per tick, n_loop {so.n_loop}, kernel launches {launches}, iters mean "
         f"{iters.mean():.2f} p99 {np.percentile(iters, 99):.0f} max {iters.max()}, "
         f"success {success:.5f} over {int(live.sum())} live lane-ticks, max viol "
         f"{max_viol:.3e}, n_dead {n_dead}, phi min {phi.min():.4f} mean {phi.mean():.4f}")
+    log(f"main path FleetStats: {stats}")
     if not np.isfinite(viol).all():
         fail("non-finite violation")
     if success < 0.99:
@@ -189,8 +214,21 @@ def phase_main_path(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr):
         fail(f"{n_dead} dead lanes")
     if not (phi > 0).all():
         fail("a lane made no path progress")
-    if launches != n_loop:
-        fail(f"kernel launches {launches} != stream loop iterations {n_loop}")
+    if not launches == so.n_loop == stats.n_loop:
+        fail(f"kernel launches {launches} != stream loop iterations {so.n_loop} "
+             f"(FleetStats.n_loop {stats.n_loop})")
+    if abs(stats.success_rate - success) > 1e-12:
+        fail(f"FleetStats success {stats.success_rate} != the executor's {success}")
+
+    rec = telemetry.read_log(tele, runtime.fleet.TELEMETRY_FIELDS)
+    n_rec = rec["tick"].size
+    log(f"main path telemetry: {n_rec} records of {len(rec)} fields read back from {tele.name}")
+    if n_rec != B_MAIN * K_MAIN:
+        fail(f"telemetry holds {n_rec} records, expected {B_MAIN * K_MAIN}")
+    if not (rec["success"].reshape(K_MAIN, B_MAIN) == succ.astype(np.float32)).all():
+        fail("telemetry success column differs from the executor's")
+    if not (rec["iters"].reshape(K_MAIN, B_MAIN) == iters.astype(np.float32)).all():
+        fail("telemetry iters column differs from the executor's")
     return launches
 
 
@@ -217,6 +255,197 @@ def phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet):
         fail(f"plant state differs from the float64 CPU run by {worst:.2e} > 2e-2")
 
 
+def _same_state(a, b):
+    """Names of the EngineState fields that differ bit for bit."""
+    return [f for f in a._fields if not bool((getattr(a, f) == getattr(b, f)).all())]
+
+
+def phase_lockstep(torch, runtime, mpcdata, scfg, tsqr):
+    scs = runtime.fleet_scenarios(B_MAIN)
+    mpc_path = OUT / "lockstep_mpcdata.bin"
+    fleet = runtime.FleetRunner(scs, solver_cfg=scfg, dtype=torch.float32,
+                                mpcdata_path=str(mpc_path), device="cuda")
+    tsqr.ls_solve.launches = 0
+    t0 = time.perf_counter()
+    stats = fleet.run(ticks=LOCKSTEP_TICKS)
+    total = time.perf_counter() - t0
+    launches = tsqr.ls_solve.launches
+    fleet.close()
+    log(f"lockstep: {LOCKSTEP_TICKS} ticks at B={B_MAIN} in {total:.2f} s, "
+        f"{1e3 * total / LOCKSTEP_TICKS:.1f} ms wall per tick, solve loop iterations "
+        f"{stats.n_loop}, kernel launches {launches}")
+    log(f"lockstep FleetStats: {stats}")
+    d = mpcdata.read_mpcdata(mpc_path, fleet.cfg)
+    n_rec = d["tick"].size
+    log(f"lockstep MPCData: {n_rec} records of {mpcdata.record_floats(fleet.cfg)} floats, "
+        f"success mean {float(d['success'].mean()):.5f}, max viol {float(d['viol'].max()):.3e}")
+    if stats.success_rate < 0.99:
+        fail(f"lockstep success {stats.success_rate:.5f} < 0.99")
+    if stats.n_dead != 0:
+        fail(f"lockstep: {stats.n_dead} dead lanes")
+    if launches != stats.n_loop:
+        fail(f"lockstep kernel launches {launches} != solve loop iterations {stats.n_loop}")
+    if n_rec != B_MAIN * LOCKSTEP_TICKS:
+        fail(f"MPCData holds {n_rec} records, expected {B_MAIN * LOCKSTEP_TICKS}")
+    if not np.isfinite(d["viol"]).all():
+        fail("lockstep: non-finite violation")
+    if abs(float(d["success"].mean()) - stats.success_rate) > 1e-6:
+        fail("MPCData success column differs from the FleetStats")
+
+    ckpt = OUT / "fleet_checkpoint.npz"
+    fleet.save_checkpoint(str(ckpt))
+    fleet.run(ticks=1)
+    resumed = runtime.FleetRunner(scs, solver_cfg=scfg, dtype=torch.float32, device="cuda")
+    resumed.load_checkpoint(str(ckpt))
+    resumed.run(ticks=1)
+    bad = _same_state(fleet.states, resumed.states)
+    log(f"lockstep checkpoint: save, 1 tick; load into a new runner, 1 tick: "
+        f"{'equal bit for bit' if not bad else 'differs in ' + ', '.join(bad)}")
+    if bad:
+        fail(f"checkpoint round trip differs in {bad}")
+    return launches, resumed
+
+
+def phase_single(torch, runtime, api, scfg, tsqr, kin):
+    runner = runtime.ClosedLoopRunner(runtime.experiment1(), solver_cfg=scfg, device="cuda")
+    if runner.dtype != torch.float32:
+        fail(f"ClosedLoopRunner on the card serves {runner.dtype}")
+    tsqr.ls_solve.launches = 0
+    t0 = time.perf_counter()
+    log1 = runner.run(max_ticks=SINGLE_TICKS)
+    t1 = time.perf_counter()
+    runner.replan(runtime.experiment2())
+    phi_replan = float(runner.state.phi[0])
+    log2 = runner.run(max_ticks=REPLAN_TICKS)
+    t2 = time.perf_counter()
+    launches = tsqr.ls_solve.launches
+    iters = sum(log1.iters) + sum(log2.iters)
+    phis = np.asarray(log1.phi)
+    log(f"single robot: experiment1 {len(log1.phi)} ticks in {t1 - t0:.2f} s "
+        f"({1e3 * (t1 - t0) / len(log1.phi):.1f} ms wall per tick, median t_comp "
+        f"{1e3 * float(np.median(log1.t_comp)):.1f} ms), success {sum(log1.success)}/"
+        f"{len(log1.success)}, max viol {max(log1.viol):.3e}, phi end {phis[-1]:.4f}, "
+        f"iters {log1.iters}")
+    log(f"single robot: replan onto experiment2 (phi {phi_replan:.4f}), {len(log2.phi)} ticks "
+        f"in {t2 - t1:.2f} s ({1e3 * (t2 - t1) / len(log2.phi):.1f} ms wall per tick), "
+        f"success {log2.success}, viol {[float(f'{v:.2e}') for v in log2.viol]}, "
+        f"iters {log2.iters}; kernel launches {launches}, GN iterations {iters}")
+    # The JAX package's gates of the same float32 run (tests/test_runtime_f32.py).
+    if len(log1.phi) != SINGLE_TICKS or not all(log1.success):
+        fail("single robot: a tick failed on experiment1")
+    if not max(log1.viol) < 1e-4:
+        fail(f"single robot: max viol {max(log1.viol):.3e} >= 1e-4")
+    if not (np.all(np.diff(phis) > -1e-6) and phis[-1] > 0.5):
+        fail("single robot: phi not monotone or <= 0.5 at the end")
+    # Its replan contract (tests/test_engine.py), over REPLAN_TICKS: a replan
+    # onto conflicting corridors is a feasibility shock; re-anchor phi near 0,
+    # recover within 8 ticks and stay successful, never run phi backward past
+    # 0, never die.
+    # Success is the engine's own test (viol < 1e-4, or converged with
+    # viol < 1e-3 under RUNTIME_F32).
+    succ2 = np.asarray(log2.success)
+    first_ok = int(np.argmax(succ2))
+    if bool(runner.state.dead[0]) or len(log2.phi) != REPLAN_TICKS:
+        fail("single robot: dead after the replan")
+    if not 0.0 <= phi_replan < 0.2:
+        fail(f"single robot: replan re-anchored phi at {phi_replan}")
+    if not (np.all(np.asarray(log2.phi) >= -1e-9) and succ2.any() and first_ok <= 8
+            and succ2[first_ok:].all()):
+        fail("single robot: no sustained recovery after the replan")
+    if launches != iters:
+        fail(f"single robot: kernel launches {launches} != GN iterations {iters}")
+
+    sc = runtime.experiment1()
+    p0 = kin.fk_pose(torch.as_tensor(sc.q0)).numpy()
+    mpc = api.BoundMPC(sc.p_via, sc.r_via, [sc.p_upper, sc.p_lower], [sc.r_upper, sc.r_lower],
+                       sc.bp1, sc.br1, sc.s, sc.e_p_min, sc.e_r_min, sc.e_p_max, sc.e_r_max,
+                       p0=p0, params=api.MPCParams(weights=sc.weights.tolist()), device="cuda")
+    x_phi_d = np.array([mpc.phi_max[0], 0.0, 0.0])
+    q, dq, ddq, jerk = sc.q0.copy(), np.zeros(7), np.zeros(7), np.zeros(7)
+    tsqr.ls_solve.launches = 0
+    t_steps, iters_api = [], 0
+    traj_keys = {"p", "v", "a", "q", "dq", "ddq", "dddq", "phi", "dphi", "ddphi", "dddphi"}
+    for _ in range(API_STEPS):
+        qt = torch.as_tensor(q)
+        p_lie = kin.fk_pose(qt).numpy()
+        v = kin.jacobian(qt).numpy() @ dq
+        t0 = time.perf_counter()
+        traj, ref, err, t_comp, it = mpc.step(q, dq, ddq, p_lie, v, x_phi_d, jerk)
+        t_steps.append(time.perf_counter() - t0)
+        if traj is None or not mpc.success:
+            fail("BoundMPC: a step failed")
+        if set(traj) != traj_keys or traj["q"].shape != (7, 10) or traj["p"].shape != (6, 10) \
+                or traj["phi"].shape != (10,) or len(ref["p"]) != 10 or len(err["e_r"]) != 10:
+            fail("BoundMPC: return layout differs from the reference's")
+        if not (it > 0 and t_comp > 0):
+            fail("BoundMPC: no iterations or no time")
+        iters_api += it
+        q, dq, ddq, jerk = traj["q"][:, 0], traj["dq"][:, 0], traj["ddq"][:, 0], traj["dddq"][:, 0]
+    launches_api = tsqr.ls_solve.launches
+    log(f"BoundMPC: {API_STEPS} steps, median {1e3 * float(np.median(t_steps)):.1f} ms wall per "
+        f"step, phi {mpc.phi_current[0]:.4f}, error_count {mpc.error_count}, kernel launches "
+        f"{launches_api}, GN iterations {iters_api}")
+    if mpc.error_count != 0 or not mpc.phi_current[0] > 0.0:
+        fail("BoundMPC: no progress or a failure on the count")
+    if launches_api != iters_api:
+        fail(f"BoundMPC: kernel launches {launches_api} != GN iterations {iters_api}")
+    return launches + launches_api
+
+
+def phase_jacobians(torch, fleet, engine, jerkint, kin, solver, bench):
+    """Structured vs AD Jacobians at the fleet's warm state, float32."""
+    from torch.func import vmap
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg, scfg, dt = fleet.cfg, fleet.scfg, torch.float32
+    co = jerkint.coeff_matrices(cfg.N, cfg.dt, dtype=dt, device="cuda")
+    lim = kin.robot_limits(dtype=dt, device="cuda")
+    st, params, mu0, reg0 = vmap(lambda s, p, w, x: engine.presolve(
+        cfg, scfg, s, p, w, x, coeffs=co, limits=lim))(fleet.states, fleet.paths,
+                                                         fleet.weights, fleet.x_phi_d)
+    u = st.u_warm.reshape(st.u_warm.shape[0], -1)
+    ctx = vmap(lambda p, R0, Q0T: solver.make_ctx(cfg, co, p, solver.QrPrefactor(R0, Q0T), dt))(
+        params, fleet._pref.R0, fleet._pref.Q0T)
+    ls = vmap(lambda w, m, g: solver.init_loop(scfg, w, m, g))(st.u_warm, mu0, reg0)
+    res, out = {}, {}
+    for jac in ("structured", "ad"):
+        s2 = scfg._replace(jac=jac)
+        jfn = vmap(solver.make_reduced_jacobians(cfg, s2, co, lim, dt))
+        step = solver.make_stepper(cfg, s2, co, lim, dt)
+        out[jac] = jfn(u, params)
+        ms = [bench.cuda_ms(lambda: jfn(u, params), 5) for _ in range(2)]
+        t0 = time.perf_counter()
+        step(ls, ctx)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        with OpCount() as c_step:
+            step(ls, ctx)
+        with OpCount() as c_jac:
+            jfn(u, params)
+        torch.cuda.synchronize()
+        res[jac] = dict(ms=ms, step_ms=step_ms, step_ops=c_step.n, jac_ops=c_jac.n)
+    errs = {}
+    for name, a, b in zip(("r", "c", "Jr_dyn", "Jc_nl"), out["structured"], out["ad"]):
+        errs[name] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    for jac, r in res.items():
+        log(f"jacobian {jac}: {r['ms'][0]:.3f} / {r['ms'][1]:.3f} ms per batched call at "
+            f"B={u.shape[0]} (CUDA events, 5 reps), one GN step {r['step_ms']:.1f} ms wall, "
+            f"aten ops per GN step {r['step_ops']}, per Jacobian call {r['jac_ops']}")
+    log(f"jacobian structured vs ad (float32, relative to the largest entry): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if not all(np.isfinite(v) and v <= JAC_TOL for v in errs.values()):
+        fail(f"structured and AD Jacobians disagree beyond {JAC_TOL}: {errs}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -224,25 +453,37 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from boundmpc_tpu_torch import batch, engine, ocp, solver, stream as stream_mod
+    from boundmpc_tpu_torch import (api, batch, engine, jerkint, kinematics, ocp, solver,
+                                    stream as stream_mod)
+    from boundmpc_tpu_torch.native import telemetry
     from boundmpc_tpu_torch.ops import _build, tsqr, tsqr_bench
-    from boundmpc_tpu_torch.runtime import build_fleet
+    from boundmpc_tpu_torch import runtime
+    from boundmpc_tpu_torch.runtime import build_fleet, mpcdata
 
+    OUT.mkdir(parents=True, exist_ok=True)
     phase_facts(torch, engine)
     phase_build(_build)
     timed = phase_kernel(torch, tsqr, tsqr_bench)
     cfg, scfg = ocp.OcpConfig(), solver.RUNTIME_F32
-    launches = phase_main_path(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr)
+    launches = phase_main_path(torch, runtime, scfg, tsqr, telemetry)
     phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet)
+    launches_lockstep, fleet = phase_lockstep(torch, runtime, mpcdata, scfg, tsqr)
+    launches_single = phase_single(torch, runtime, api, scfg, tsqr, kinematics)
+    phase_jacobians(torch, fleet, engine, jerkint, kinematics, solver, tsqr_bench)
 
+    b1 = timed[TIMED_SHAPES[2]]
     print(json.dumps({"kernels": [{
         "name": "tsqr_ls_solve", "route": "cuda",
         "source": "boundmpc_tpu_torch/csrc/tsqr.cu",
         "replaces": "boundmpc_tpu/ops/tsqr.py:37",
-        "launches": launches, **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
+        "launches": launches, "launches_lockstep": launches_lockstep,
+        "launches_single": launches_single,
+        **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
                      "library_ms": timed[TIMED_SHAPES[1]]["library_ms"],
-                     "bound_ms": timed[TIMED_SHAPES[1]]["bound_ms"]}}]}))
+                     "bound_ms": timed[TIMED_SHAPES[1]]["bound_ms"]},
+        "at_b1": {"ms": b1["ms"], "plain_ms": b1["plain_ms"], "library_ms": b1["library_ms"],
+                  "bound_ms": b1["bound_ms"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,10 @@ import numpy as np
 import pytest
 import torch
 
-from boundmpc_tpu_torch import batch, convert, ocp, solver, stream
+from boundmpc_tpu_torch import api, batch, convert, ocp, solver, stream
+from boundmpc_tpu_torch.ops.tsqr import serving_dtype
+from boundmpc_tpu_torch.runtime import (ClosedLoopRunner, FleetRunner, default_path,
+                                        experiment1)
 
 ENTRY_POINTS = {
     "stream.make_stream_fn": stream.make_stream_fn,
@@ -13,7 +16,26 @@ ENTRY_POINTS = {
     "batch.make_batched_tick": batch.make_batched_tick,
     "batch.make_scanned_ticks": batch.make_scanned_ticks,
     "convert.from_numpy": convert.from_numpy,
+    "runtime.FleetRunner": FleetRunner,
+    "runtime.ClosedLoopRunner": ClosedLoopRunner,
+    "api.BoundMPC": api.BoundMPC,
 }
+SERVING = ("runtime.FleetRunner", "runtime.ClosedLoopRunner", "api.BoundMPC")
+
+
+def _facade(**kw):
+    sc = default_path(nr_segs=4)
+    return api.BoundMPC(sc.p_via, sc.r_via, [sc.p_upper, sc.p_lower], [sc.r_upper, sc.r_lower],
+                        sc.bp1, sc.br1, sc.s, sc.e_p_min, sc.e_r_min, sc.e_p_max, sc.e_r_max,
+                        **kw)
+
+
+def _serving(name, **kw):
+    if name == "runtime.FleetRunner":
+        return FleetRunner([experiment1()], **kw)
+    if name == "runtime.ClosedLoopRunner":
+        return ClosedLoopRunner(default_path(nr_segs=4), **kw)
+    return _facade(**kw)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -27,6 +49,8 @@ def _call_with_defaults(name):
         return convert.from_numpy("QrPrefactor", {"R0": np.eye(3), "Q0T": np.eye(3)})
     if name == "batch.make_batched_tick":
         return batch.make_batched_tick(cfg, scfg)
+    if name in SERVING:
+        return _serving(name)
     return ENTRY_POINTS[name](cfg, scfg, 2)
 
 
@@ -37,3 +61,37 @@ def test_default_device_without_a_card_raises(name):
         pytest.skip("a CUDA device is present: the default call succeeds")
     with pytest.raises((RuntimeError, AssertionError)):
         _call_with_defaults(name)
+
+
+@pytest.mark.parametrize("name", SERVING)
+def test_serving_entry_point_runs_on_the_cpu(name):
+    obj = _serving(name, device="cpu")
+    assert obj.device == torch.device("cpu")
+    want = torch.float32 if name == "runtime.FleetRunner" else torch.float64
+    assert obj.dtype == want
+
+
+@pytest.mark.parametrize("name", SERVING)
+def test_serving_dtype_default_is_none_or_float32(name):
+    default = inspect.signature(ENTRY_POINTS[name]).parameters["dtype"].default
+    assert default is (torch.float32 if name == "runtime.FleetRunner" else None)
+
+
+def test_serving_dtype_rule():
+    """float32 on a CUDA device, float64 on the CPU; float64 on a CUDA
+    device is refused (the card runs the float32 kernel)."""
+    assert serving_dtype("cuda") == torch.float32
+    assert serving_dtype("cpu") == torch.float64
+    assert serving_dtype("cpu", torch.float32) == torch.float32
+    assert serving_dtype(torch.device("cuda", 0), torch.float32) == torch.float32
+    with pytest.raises(ValueError, match="CPU parity path"):
+        serving_dtype("cuda", torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVING)
+def test_float64_on_the_card_raises_at_construction(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with pytest.raises(ValueError, match="CPU parity path"):
+        _serving(name, dtype=torch.float64)

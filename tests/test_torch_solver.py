@@ -132,11 +132,15 @@ def test_make_prefactor_invariants():
 
 
 def test_unported_paths_raise():
+    """Only the test-only unreduced stack (method="qr_full") is not ported;
+    the default SolverConfig() (jac="structured") builds."""
     co = tjerk.coeff_matrices(CFG_T.N, CFG_T.dt, dtype=torch.float64)
     lim = tkin.robot_limits(dtype=torch.float64)
-    for scfg in (tsol.SolverConfig(), SCFG_T._replace(method="qr_full")):
-        with pytest.raises(NotImplementedError):
-            tsol.make_stepper(CFG_T, scfg, co, lim, torch.float64)
+    with pytest.raises(NotImplementedError):
+        tsol.make_stepper(CFG_T, SCFG_T._replace(method="qr_full"), co, lim, torch.float64)
+    with pytest.raises(ValueError):
+        tsol.make_stepper(CFG_T, SCFG_T._replace(jac="fd"), co, lim, torch.float64)
+    assert callable(tsol.make_stepper(CFG_T, tsol.SolverConfig(), co, lim, torch.float64))
 
 
 def test_solver_configs_match_jax():

@@ -138,8 +138,14 @@ def test_build_fleet_matches_jax():
 def test_port_imports_no_jax():
     code = ("import importlib, pkgutil, sys\n"
             "import boundmpc_tpu_torch as p\n"
-            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+            "for want in ('api', 'runtime.fleet', 'runtime.runner', 'runtime.mpcdata',\n"
+            "             'native.telemetry', 'observability.horizon', 'jacobian'):\n"
+            "    assert p.__name__ + '.' + want in names, want\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "from boundmpc_tpu_torch.runtime import ClosedLoopRunner, FleetRunner, RunLog\n"
+            "from boundmpc_tpu_torch.api import BoundMPC, MPCParams\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'boundmpc_tpu' or k.startswith('boundmpc_tpu.'))\n"
             "assert not bad, bad\n"
