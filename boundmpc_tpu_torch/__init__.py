@@ -4,9 +4,11 @@ Cartesian path-following MPC for a 7-DOF manipulator, batched over fleets of
 scenarios: kinematics, Lie-space path errors, quartic bound envelopes, the
 condensed OCP, the relaxed-barrier Gauss-Newton solver (its least-squares
 step a hand-written Hopper kernel, ``ops/tsqr.py``), the receding-horizon
-engine, the stream executor, and the serving entry points: ``FleetRunner``
+engine, the stream executor, the serving entry points: ``FleetRunner``
 and ``ClosedLoopRunner`` (``runtime``) and the reference-compatible
-``api.BoundMPC``.  The JAX package stays the reference; this package imports
+``api.BoundMPC``, the scenario-sharded fleet over ``torch.distributed``
+(``distributed``, one process per card) and the offline report
+(``observability``).  The JAX package stays the reference; this package imports
 torch and never jax.
 """
 

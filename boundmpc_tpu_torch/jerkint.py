@@ -7,6 +7,7 @@ host in numpy (cached) and the rollout is three small matmuls.
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import NamedTuple, Tuple
 
@@ -70,3 +71,40 @@ def rollout_linear(
     vel = v0[None, :] + a0[None, :] * t + coeffs.c_vel @ u_all
     acc = a0[None, :] + coeffs.c_acc @ u_all
     return pos, vel, acc
+
+
+def step(u_lo: torch.Tensor, u_hi: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
+         a: torch.Tensor, h: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One exact integration step over [0, h] with knots (u_lo, u_hi)."""
+    p_n = p + v * h + a * h * h / 2 + u_lo * h**3 / 8 + u_hi * h**3 / 24
+    v_n = v + a * h + u_lo * h * h / 3 + u_hi * h * h / 6
+    a_n = a + (u_lo + u_hi) * h / 2
+    return p_n, v_n, a_n
+
+
+def eval_at(
+    knots: torch.Tensor,  # (M, d) hat-knot values at times 0, h, ..., (M-1) h
+    t: float,
+    p0: torch.Tensor,
+    v0: torch.Tensor,
+    a0: torch.Tensor,
+    h: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pos, vel, acc, jerk) at a time t >= 0 given as a Python float: whole
+    steps on the host, then the cubic and quartic terms of the last part."""
+    M = knots.shape[0]
+    pos, vel, acc = p0, v0, a0
+    k_full = min(int(math.floor(t / h + 1e-12)), M - 1)
+    for k in range(k_full):
+        pos, vel, acc = step(knots[k], knots[k + 1], pos, vel, acc, h)
+    tau = t - k_full * h
+    if tau <= 1e-12:
+        return pos, vel, acc, knots[k_full]
+    u_lo = knots[k_full]
+    u_hi = knots[k_full + 1] if k_full + 1 < M else torch.zeros_like(u_lo)
+    du = (u_hi - u_lo) / h
+    jerk = u_lo + du * tau
+    pos_t = pos + vel * tau + acc * tau**2 / 2 + u_lo * tau**3 / 6 + du * tau**4 / 24
+    vel_t = vel + acc * tau + u_lo * tau**2 / 2 + du * tau**3 / 6
+    acc_t = acc + u_lo * tau + du * tau**2 / 2
+    return pos_t, vel_t, acc_t, jerk

@@ -109,10 +109,23 @@ def joint_frames(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     return origins_arr, axes_arr, R_arr
 
 
+def fk_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Homogeneous EE transform (4, 4)."""
+    origins, _, R = joint_frames(q)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
+    return torch.cat([torch.cat([R, origins[-1][:, None]], dim=1), bottom[None]], dim=0)
+
+
 def fk_pos(q: torch.Tensor) -> torch.Tensor:
     """EE position (3,)."""
     origins, _, _ = joint_frames(q)
     return origins[-1]
+
+
+def fk_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """EE rotation matrix (3, 3)."""
+    _, _, R = joint_frames(q)
+    return R
 
 
 def fk_pose(q: torch.Tensor) -> torch.Tensor:
@@ -151,3 +164,35 @@ def djacobian(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
 def ddjacobian(q: torch.Tensor, dq: torch.Tensor, ddq: torch.Tensor) -> torch.Tensor:
     """d^2J/dt^2 (6, 7) = (d(dJ)/dq) dq + (d(dJ)/d(dq)) ddq."""
     return jvp(djacobian, (q, dq), (dq, ddq))[1].to(q.dtype)
+
+
+def velocity_ee(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    """EE linear velocity (3,)."""
+    return jacobian(q)[:3] @ dq
+
+
+def omega_ee(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    """EE spatial angular velocity (3,)."""
+    return jacobian(q)[3:] @ dq
+
+
+def twist_ee(q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    """Full 6D EE velocity [v; omega]."""
+    return jacobian(q) @ dq
+
+
+def acceleration_ee(q: torch.Tensor, dq: torch.Tensor, ddq: torch.Tensor) -> torch.Tensor:
+    """EE 6D acceleration J ddq + dJ dq."""
+    return jacobian(q) @ ddq + djacobian(q, dq) @ dq
+
+
+def manipulability(q: torch.Tensor) -> torch.Tensor:
+    """det(J J^T), the squared Yoshikawa measure (the reference's
+    ``manipulability_measure``)."""
+    J = jacobian(q)
+    return torch.linalg.det(J @ J.T)
+
+
+def forward_kinematics(q: torch.Tensor, dq: torch.Tensor):
+    """(pose [pos, rotvec], J, dJ)."""
+    return fk_pose(q), jacobian(q), djacobian(q, dq)

@@ -1,5 +1,9 @@
-"""Observability: horizon-wise rotation-error diagnostics (``horizon``).
+"""Observability: the figure report of a closed-loop log (``report``) and
+horizon-wise rotation-error diagnostics (``horizon``).
 
-The JAX package's figure report (``observability/report.py``) is not ported
-yet."""
+The report replaces the reference's Logger -> Plotter pipeline: the npz
+export and figures are rendered to files from logged telemetry.  matplotlib
+is imported only when figures are rendered.
+"""
 from .horizon import horizon_plane_errors, make_horizon_eval  # noqa: F401
+from .report import Report, generate_report  # noqa: F401

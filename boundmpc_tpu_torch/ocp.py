@@ -432,6 +432,14 @@ def full_constraints(cfg: OcpConfig, params: OcpParams, ev: StageEval,
     )
 
 
+def objective_and_constraints(cfg: OcpConfig, coeffs: jerkint.JerkCoeffs,
+                              params: OcpParams, u: torch.Tensor,
+                              limits: kinematics.RobotLimits):
+    """(f, c) from one rollout: the solver's model function."""
+    ev = evaluate_stages(cfg, coeffs, params, u)
+    return objective(cfg, params, ev, u), full_constraints(cfg, params, ev, u, limits)
+
+
 def residuals(cfg: OcpConfig, params: OcpParams, ev: StageEval,
               u: torch.Tensor) -> torch.Tensor:
     """Weighted least-squares residual vector r with objective == sum(r^2)

@@ -4,9 +4,8 @@ native sink (port of ``boundmpc_tpu/runtime/mpcdata.py``).
 One flat float32 record per (scenario, tick): meta and solve stats, the
 post-tick plant and controller state, the measured pose and twist, the
 full-horizon solution trajectories, per-stage errors and bounds.  The schema
-is the JAX package's, so either package reads the other's logs.  The JAX
-package's ``report_from_telemetry`` (figures from a log) is not ported: it
-needs the observability report, a later slice.
+is the JAX package's, so either package reads the other's logs, and
+``report_from_telemetry`` renders the observability report from a log alone.
 """
 from __future__ import annotations
 
@@ -134,6 +133,23 @@ def read_mpcdata(path, cfg: ocp.OcpConfig) -> Dict[str, np.ndarray]:
         out[name] = block.reshape((raw.shape[0],) + tuple(sh)) if sh else block[:, 0]
         off += n
     return out
+
+
+def report_from_telemetry(path, scenario, outdir, scenario_idx: int = 0,
+                          tail: str = "telemetry", figures: bool = True, device="cuda"):
+    """The observability report of lane ``scenario_idx`` from a binary
+    MPCData log alone, plus the lane's ``Scenario`` (config, not
+    telemetry) for its path.  ``figures`` and ``device`` are
+    ``generate_report``'s."""
+    from types import SimpleNamespace
+
+    from ..observability import generate_report
+
+    cfg = ocp.OcpConfig(N=scenario.N, nr_segs=scenario.nr_segs, dt=scenario.dt)
+    log = runlog_from_telemetry(path, cfg, scenario_idx)
+    path_data = scenario.build(dtype=np.float64)
+    shim = SimpleNamespace(path=path_data, cfg=cfg, phi_max=float(path_data.phi_max) - 1e-4)
+    return generate_report(log, shim, outdir, tail=tail, figures=figures, device=device)
 
 
 def runlog_from_telemetry(path, cfg: ocp.OcpConfig, scenario: int = 0):

@@ -36,9 +36,22 @@ Phases (any failure exits nonzero and prints no result line):
      pattern (key layout, shapes, success on every step);
   8. the structured Jacobian against the AD Jacobian on the card at a warm
      state of the phase-6 fleet (float32, relative error <= JAC_TOL), both
-     timed at B = 256, with the aten op count of one GN step under each.
+     timed at B = 256, with the aten op count of one GN step under each;
+  9. the scenario-sharded engine (``distributed.ShardedEngine``) over an
+     NCCL group of one: the B = 256 fleet from rest through its ``tick``
+     (1 tick) and ``stream`` (SHARD_TICKS ticks) against the unsharded
+     ``batch.make_batched_tick`` and ``stream.make_stream_ticks`` on the same
+     inputs, every state field and series equal bit for bit, the reduced
+     metrics equal to the JAX package's formulas on the unsharded outputs,
+     and kernel launches equal to the reduced loop counts;
+ 10. the observability report on the card with figures off: the phase-7
+     experiment1 log through ``generate_report`` (npz keys, finite values,
+     t_comp_avg > 0, and the derivative cross-check of the JAX package's
+     tests/test_report.py) and lane 0 of the phase-6 MPCData log through
+     ``report_from_telemetry``.
 Then one JSON line describing the kernels, and last the device JSON line.
 """
+import importlib.util
 import json
 import os
 import subprocess
@@ -46,11 +59,12 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
 B_MAIN = 256
-K_MAIN = 20  # stream ticks, one executor call
+K_MAIN = 12  # stream ticks, one executor call; keeps the script under 10 minutes
 B_SMALL, K_SMALL = 4, 4
 # Phase 3: the main path's shape, a larger batch, several chunks, ragged rows
 # with a small n, the widest n the kernel takes, one scenario.
@@ -70,6 +84,11 @@ API_STEPS = 10
 # Structured vs AD Jacobian, float32, relative to the largest entry: the two
 # agree to 1.8e-7 in float32 and 3.5e-16 in float64 on the CPU.
 JAC_TOL = 1e-5
+SHARD_TICKS = 3  # phase 9's stream ticks
+# Phase 10: what the JAX package's tests/test_report.py requires of the npz.
+REPORT_KEYS = ("e_p_b1", "bounds", "bound_pl_proj_xy", "bound_pu_proj_xz", "condition_number",
+               "manipulability", "e_p", "de_p", "e_r", "de_r", "horizon_dddq", "t_loop",
+               "t_overhead", "audit_e_p_par")
 OUT = Path(__file__).resolve().parent / "build" / "boundmpc_tpu_torch" / "smoke"
 
 
@@ -86,14 +105,19 @@ def phase_facts(torch, engine):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    for line in smi.stdout.strip().splitlines():
-        log(line.strip())
+    lines = [line.strip() for line in smi.stdout.strip().splitlines()]
+    for line in lines:
+        log(line)
     engine.full_f32_matmuls()
     log(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  python {sys.version.split()[0]}")
     log(f"float32 matmuls: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    mpl = importlib.util.find_spec("matplotlib")
+    log(f"matplotlib: {'present at ' + str(mpl.origin) if mpl else 'absent'} "
+        f"(the report's figures need it; phase 10 runs with figures off)")
+    return lines[0]
 
 
 def phase_build(_build):
@@ -314,6 +338,8 @@ def phase_single(torch, runtime, api, scfg, tsqr, kin):
     t0 = time.perf_counter()
     log1 = runner.run(max_ticks=SINGLE_TICKS)
     t1 = time.perf_counter()
+    # What phase 10's report of log1 needs of the runner, before the replan.
+    exp1 = SimpleNamespace(path=runner.path, cfg=runner.cfg, phi_max=runner.phi_max)
     runner.replan(runtime.experiment2())
     phi_replan = float(runner.state.phi[0])
     log2 = runner.run(max_ticks=REPLAN_TICKS)
@@ -389,7 +415,7 @@ def phase_single(torch, runtime, api, scfg, tsqr, kin):
         fail("BoundMPC: no progress or a failure on the count")
     if launches_api != iters_api:
         fail(f"BoundMPC: kernel launches {launches_api} != GN iterations {iters_api}")
-    return launches + launches_api
+    return launches + launches_api, log1, exp1
 
 
 def phase_jacobians(torch, fleet, engine, jerkint, kin, solver, bench):
@@ -446,6 +472,128 @@ def phase_jacobians(torch, fleet, engine, jerkint, kin, solver, bench):
         fail(f"structured and AD Jacobians disagree beyond {JAC_TOL}: {errs}")
 
 
+def _flat(tree):
+    """The tensor leaves of a NamedTuple tree, by dotted name."""
+    out = {}
+    for f, v in zip(tree._fields, tree):
+        if hasattr(v, "_fields"):
+            out.update({f"{f}.{k}": x for k, x in _flat(v).items()})
+        elif v is not None and hasattr(v, "dtype"):
+            out[f] = v
+    return out
+
+
+def _differs(a, b):
+    """Names of the leaves of two trees that differ (NaN matches NaN)."""
+    fa, fb = _flat(a), _flat(b)
+    return sorted(k for k in fa
+                  if not bool(((fa[k] == fb[k]) | ((fa[k] != fa[k]) & (fb[k] != fb[k]))).all()))
+
+
+def phase_sharded(torch, distributed, batch, stream_mod, build_fleet, cfg, scfg, tsqr, card,
+                  B=B_MAIN, device="cuda"):
+    """The sharded engine over a group of one against the unsharded
+    executors on the same inputs."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    distributed.init_multihost(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=device)
+    try:
+        eng = distributed.ShardedEngine(cfg, scfg, dtype=torch.float32, device=device)
+        fleet = build_fleet(B, cfg, device, torch.float32)
+        local = [eng.sharding(t) for t in fleet]
+        pref_s = eng.prefactor(*local[1:])
+        pref = batch.make_prefactor_batch(cfg, *fleet[1:], dtype=torch.float32)
+        if _differs(pref_s, pref):
+            fail(f"sharded prefactor differs in {_differs(pref_s, pref)}")
+        ms = {}
+        tsqr.ls_solve.launches = 0
+        t0 = time.perf_counter()
+        st_t, out_t, m_tick = eng.tick(*local, pref_s)
+        sync()
+        t1 = time.perf_counter()
+        st_s, so_s, m_stream = eng.stream(*local, pref_s, SHARD_TICKS)
+        sync()
+        ms["sharded"] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+        launches = tsqr.ls_solve.launches
+    finally:
+        distributed.dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    st_p, out_p = batch.make_batched_tick(cfg, scfg, dtype=torch.float32, device=device)(
+        *fleet, pref)
+    sync()
+    t1 = time.perf_counter()
+    st_q, so_q = stream_mod.make_stream_ticks(cfg, scfg, SHARD_TICKS, dtype=torch.float32,
+                                              device=device)(*fleet, pref)
+    sync()
+    ms["unsharded"] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+
+    n_tick, n_stream = int(out_p.stats.n_loop[0]), so_q.n_loop
+    for name, (tick_ms, stream_ms) in ms.items():
+        log(f"sharded engine: {name} B={B}: tick {tick_ms:.1f} ms ({n_tick} loop iterations, "
+            f"{tick_ms / n_tick:.1f} ms per loop iteration), stream {SHARD_TICKS} ticks "
+            f"{stream_ms / SHARD_TICKS:.1f} ms per tick ({n_stream} loop iterations, "
+            f"{stream_ms / n_stream:.1f} ms per loop iteration); {card}")
+    live = ~torch.cat([fleet[0].dead[None], so_q.dead[:-1]], dim=0)
+    want_tick = {"n_success": int(out_p.success.sum()), "n_dead": int(st_p.dead.sum()),
+                 "total_iters": int(out_p.stats.iters.sum()), "n_loop": n_tick,
+                 "max_viol": float(out_p.stats.viol.max()), "mean_phi": float(st_p.phi.mean())}
+    want_stream = {"n_success": int((so_q.success & live).sum()), "n_live": int(live.sum()),
+                   "n_dead": int(st_q.dead.sum()), "total_iters": int(so_q.iters.sum()),
+                   "n_loop": n_stream,
+                   "max_viol": float(torch.where(live, so_q.viol, 0.0).max()),
+                   "mean_phi": float(st_q.phi.mean())}
+    bad = {"tick state": _differs(st_t, st_p), "tick outputs": _differs(out_t, out_p),
+           "stream state": _differs(st_s, st_q),
+           "stream series": _differs(so_s._replace(n_loop=None), so_q._replace(n_loop=None))}
+    log(f"sharded engine: reduced metrics tick {m_tick}, stream {m_stream}; kernel launches "
+        f"{launches}; bit for bit against the unsharded executors: "
+        + ", ".join(f"{k} {'equal' if not v else 'differs in ' + str(v)}" for k, v in bad.items()))
+    if any(bad.values()):
+        fail(f"sharded engine differs from the unsharded executors: {bad}")
+    if m_tick != want_tick or m_stream != want_stream:
+        fail(f"reduced metrics {m_tick} / {m_stream} != {want_tick} / {want_stream}")
+    if so_s.n_loop != n_stream or launches != m_tick["n_loop"] + m_stream["n_loop"]:
+        fail(f"kernel launches {launches} != reduced loop counts "
+             f"{m_tick['n_loop']} + {m_stream['n_loop']}")
+    return launches
+
+
+def _check_report(rep, keys, name):
+    data = np.load(rep.npz_path)
+    missing = [k for k in keys if k not in data.files]
+    bad = [k for k in ("bounds", "manipulability", "condition_number", "audit_e_p_par",
+                       "audit_e_r_par", "bound_corners") if not np.isfinite(data[k]).all()]
+    log(f"report {name}: {len(data.files)} npz arrays, {len(data['t'])} ticks, timing "
+        f"{rep.timing}, figures {sorted(rep.figures)}")
+    if missing or bad or rep.figures or not rep.timing["t_comp_avg"] > 0:
+        fail(f"report {name}: missing {missing}, non-finite {bad}, figures {rep.figures}, "
+             f"timing {rep.timing}")
+    return data
+
+
+def phase_report(generate_report, report_from_telemetry, scenario, log1, exp1, device="cuda"):
+    """The report of the phase-7 log and of lane 0 of the phase-6 MPCData
+    log, figures off."""
+    t0 = time.perf_counter()
+    rep = generate_report(log1, exp1, str(OUT / "report"), tail="exp1", figures=False,
+                          device=device)
+    t1 = time.perf_counter()
+    data = _check_report(rep, REPORT_KEYS + ("approx_error",), "of the phase-7 log")
+    # The derivative cross-check of tests/test_report.py: the numerically
+    # differentiated e_p tracks the MPC's computed de_p at interior ticks.
+    dt = float(np.median(np.diff(data["t"])))
+    err = float(np.median(np.abs(np.gradient(data["e_p"], dt, axis=0)[1:-1]
+                                 - data["de_p"][1:-1])))
+    rep2 = report_from_telemetry(OUT / "lockstep_mpcdata.bin", scenario, str(OUT / "report"),
+                                 figures=False, device=device)
+    t2 = time.perf_counter()
+    _check_report(rep2, REPORT_KEYS, "of lane 0 of the phase-6 MPCData log")
+    log(f"report: derivative cross-check median |d/dt e_p - de_p| {err:.3e} (gate 5e-3); "
+        f"{1e3 * (t1 - t0):.0f} ms and {1e3 * (t2 - t1):.0f} ms wall")
+    if not err < 5e-3:
+        fail(f"report derivative cross-check {err:.3e} >= 5e-3")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -453,23 +601,29 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from boundmpc_tpu_torch import (api, batch, engine, jerkint, kinematics, ocp, solver,
-                                    stream as stream_mod)
+    from boundmpc_tpu_torch import (api, batch, distributed, engine, jerkint, kinematics, ocp,
+                                    solver, stream as stream_mod)
+    from boundmpc_tpu_torch.observability import generate_report
     from boundmpc_tpu_torch.native import telemetry
     from boundmpc_tpu_torch.ops import _build, tsqr, tsqr_bench
     from boundmpc_tpu_torch import runtime
     from boundmpc_tpu_torch.runtime import build_fleet, mpcdata
 
     OUT.mkdir(parents=True, exist_ok=True)
-    phase_facts(torch, engine)
+    card = phase_facts(torch, engine)
     phase_build(_build)
     timed = phase_kernel(torch, tsqr, tsqr_bench)
     cfg, scfg = ocp.OcpConfig(), solver.RUNTIME_F32
     launches = phase_main_path(torch, runtime, scfg, tsqr, telemetry)
     phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet)
     launches_lockstep, fleet = phase_lockstep(torch, runtime, mpcdata, scfg, tsqr)
-    launches_single = phase_single(torch, runtime, api, scfg, tsqr, kinematics)
+    launches_single, log1, exp1 = phase_single(torch, runtime, api, scfg, tsqr, kinematics)
     phase_jacobians(torch, fleet, engine, jerkint, kinematics, solver, tsqr_bench)
+    launches_sharded = phase_sharded(torch, distributed, batch, stream_mod, build_fleet, cfg,
+                                     scfg, tsqr, card)
+    # Lane 0 of the phase-6 fleet is experiment1.
+    phase_report(generate_report, mpcdata.report_from_telemetry,
+                 runtime.fleet_scenarios(1)[0], log1, exp1)
 
     b1 = timed[TIMED_SHAPES[2]]
     print(json.dumps({"kernels": [{
@@ -477,7 +631,7 @@ def main() -> int:
         "source": "boundmpc_tpu_torch/csrc/tsqr.cu",
         "replaces": "boundmpc_tpu/ops/tsqr.py:37",
         "launches": launches, "launches_lockstep": launches_lockstep,
-        "launches_single": launches_single,
+        "launches_single": launches_single, "launches_sharded": launches_sharded,
         **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
                      "library_ms": timed[TIMED_SHAPES[1]]["library_ms"],

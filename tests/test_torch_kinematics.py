@@ -77,7 +77,11 @@ def test_matrix_to_quat_first_max_tie():
         _close(jlie.matrix_to_quat(jnp.asarray(m)), tlie.matrix_to_quat(_t(m)))
 
 
-_KIN_CASES = ["joint_frames", "fk_pos", "fk_pose", "jacobian", "djacobian", "ddjacobian"]
+_KIN_CASES = ["joint_frames", "fk_pos", "fk_pose", "jacobian", "djacobian", "ddjacobian",
+              "fk_matrix", "fk_rotmat", "velocity_ee", "omega_ee", "twist_ee",
+              "acceleration_ee", "manipulability", "forward_kinematics"]
+_KIN_NARGS = {"djacobian": 2, "ddjacobian": 3, "velocity_ee": 2, "omega_ee": 2,
+              "twist_ee": 2, "acceleration_ee": 3, "forward_kinematics": 2}
 
 
 @pytest.mark.parametrize("name", _KIN_CASES)
@@ -87,7 +91,7 @@ def test_kinematics_matches_jax(name):
     q = rng.uniform(-2.5, 2.5, size=(B, 7))
     dq = rng.normal(size=(B, 7))
     ddq = rng.normal(size=(B, 7))
-    nargs = {"djacobian": 2, "ddjacobian": 3}.get(name, 1)
+    nargs = _KIN_NARGS.get(name, 1)
     args = (q, dq, ddq)[:nargs]
     out_j = jax.vmap(getattr(jkin, name))(*(jnp.asarray(a) for a in args))
     out_t = vmap(getattr(tkin, name))(*(_t(a) for a in args))
@@ -116,6 +120,31 @@ def test_jerkint_matches_jax(N, h):
     p0, v0, a0 = rng.normal(size=(3, 8))
     out_j = jjerk.rollout_linear(cj, *(jnp.asarray(a) for a in (u_all, p0, v0, a0)))
     out_t = tjerk.rollout_linear(ct, *(_t(a) for a in (u_all, p0, v0, a0)))
+    for a, b in zip(out_j, out_t):
+        _close(a, b)
+
+
+def test_jerkint_step_matches_jax():
+    rng = np.random.default_rng(2)
+    args = rng.normal(size=(5, 8))
+    out_j = jjerk.step(*(jnp.asarray(a) for a in args), 0.1)
+    out_t = tjerk.step(*(_t(a) for a in args), 0.1)
+    for a, b in zip(out_j, out_t):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("t", [0.0, 0.05, 0.1, 0.37, 0.5, 0.999, 1.5],
+                         ids=["0", "inside_first", "on_knot", "mid", "last_knot",
+                              "inside_last", "past_end"])
+def test_jerkint_eval_at_matches_jax(t):
+    """Whole steps, the partial step, a time on a knot, and a time past the
+    last knot (zero jerk beyond it)."""
+    rng = np.random.default_rng(3)
+    h, M = 0.1, 6
+    knots = rng.normal(size=(M, 8))
+    p0, v0, a0 = rng.normal(size=(3, 8))
+    out_j = jjerk.eval_at(jnp.asarray(knots), t, *(jnp.asarray(a) for a in (p0, v0, a0)), h)
+    out_t = tjerk.eval_at(_t(knots), t, *(_t(a) for a in (p0, v0, a0)), h)
     for a, b in zip(out_j, out_t):
         _close(a, b)
 

@@ -152,3 +152,17 @@ def test_residuals_and_constraints_match_jax(idx, scaled, margin):
     ev_j = jocp.evaluate_stages(CFG_J, co_j, prm_j, jnp.asarray(u))
     _close(jocp.objective(CFG_J, prm_j, ev_j, jnp.asarray(u)),
            tocp.objective(CFG_T, prm_t, ev_t, _t(u)), "objective")
+
+
+@pytest.mark.parametrize("idx", [0, 1, 2], ids=["exp1", "exp2", "random1"])
+def test_objective_and_constraints_match_jax(idx):
+    prm_j, prm_t = _params_both(_scenarios()[idx], seed=20 + idx)
+    u = 0.3 * np.random.default_rng(30 + idx).normal(size=(CFG_J.N, 8))
+    co_j = jjerk.coeff_matrices(CFG_J.N, CFG_J.dt, dtype=jnp.float64)
+    co_t = tjerk.coeff_matrices(CFG_T.N, CFG_T.dt, dtype=torch.float64)
+    f_j, c_j = jax.jit(lambda p, uu: jocp.objective_and_constraints(
+        CFG_J, co_j, p, uu, jkin.robot_limits()))(prm_j, jnp.asarray(u))
+    f_t, c_t = tocp.objective_and_constraints(CFG_T, co_t, prm_t, _t(u),
+                                              tkin.robot_limits(dtype=torch.float64))
+    _close(f_j, f_t, "objective")
+    _close(c_j, c_t, "constraints")

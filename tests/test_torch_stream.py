@@ -140,12 +140,16 @@ def test_port_imports_no_jax():
             "import boundmpc_tpu_torch as p\n"
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
             "for want in ('api', 'runtime.fleet', 'runtime.runner', 'runtime.mpcdata',\n"
-            "             'native.telemetry', 'observability.horizon', 'jacobian'):\n"
+            "             'native.telemetry', 'observability.horizon', 'jacobian',\n"
+            "             'distributed', 'observability.report'):\n"
             "    assert p.__name__ + '.' + want in names, want\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "from boundmpc_tpu_torch.runtime import ClosedLoopRunner, FleetRunner, RunLog\n"
             "from boundmpc_tpu_torch.api import BoundMPC, MPCParams\n"
+            "from boundmpc_tpu_torch.distributed import ShardedEngine, init_multihost\n"
+            "from boundmpc_tpu_torch.observability import generate_report\n"
+            "from boundmpc_tpu_torch.runtime.mpcdata import report_from_telemetry\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'boundmpc_tpu' or k.startswith('boundmpc_tpu.'))\n"
             "assert not bad, bad\n"

@@ -127,3 +127,46 @@ def test_jax_reads_the_port_mpcdata(mpc_log):
     assert a_t.keys() == a_j.keys()
     for k in a_t:
         np.testing.assert_array_equal(a_t[k], a_j[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_mpc_log(tmp_path_factory):
+    """An MPCData log written by the JAX package's fleet: experiment1, 3 ticks."""
+    from boundmpc_tpu.runtime import FleetRunner as JaxFleet, experiment1 as jexp1
+    path = str(tmp_path_factory.mktemp("jmpc") / "mpcdata.bin")
+    f = JaxFleet([jexp1()], mpcdata_path=path)
+    f.run(ticks=3)
+    f.close()
+    return path
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_report_from_telemetry_matches_jax(request, tmp_path, monkeypatch, writer):
+    """Each package's report of lane 0 (experiment1) from the same log.  The
+    log holds float32; the JAX package's report evaluates its kinematics in
+    the dtype of the series it reads, the port's in float64.  So the JAX
+    report here reads the log's series promoted to float64, and the two
+    agree to 1e-10."""
+    from boundmpc_tpu.runtime import experiment1 as jexp1
+    path = request.getfixturevalue("mpc_log")[0] if writer == "port" else \
+        request.getfixturevalue("jax_mpc_log")
+    read = jmpc.runlog_from_telemetry
+
+    def read_f64(*args):
+        log = read(*args)
+        for k, v in vars(log).items():
+            if len(v) and getattr(v[0], "dtype", None) == np.float32:
+                setattr(log, k, [x.astype(np.float64) for x in v])
+        return log
+
+    monkeypatch.setattr(jmpc, "runlog_from_telemetry", read_f64)
+    rep_j = jmpc.report_from_telemetry(path, jexp1(), str(tmp_path / "jax"))
+    rep_t = mpcdata.report_from_telemetry(path, experiment1(), str(tmp_path / "port"),
+                                          figures=False, device="cpu")
+    assert rep_t.figures == {} and len(rep_j.figures) == 9
+    assert rep_t.timing == rep_j.timing and rep_t.timing["t_comp_avg"] > 0
+    d_j, d_t = np.load(rep_j.npz_path), np.load(rep_t.npz_path)
+    assert sorted(d_t.files) == sorted(d_j.files)
+    for k in d_j.files:
+        np.testing.assert_allclose(np.asarray(d_t[k], np.float64), np.asarray(d_j[k], np.float64),
+                                   rtol=1e-10, atol=1e-10, err_msg=k)
