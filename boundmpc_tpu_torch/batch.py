@@ -44,15 +44,16 @@ def make_prefactor_batch(cfg: ocp.OcpConfig, paths: PathData,
 
 
 def make_batched_tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
-                      dtype=torch.float32, device="cuda"):
+                      dtype=torch.float32, device="cuda", solve_fn=None):
     """tick_b(states, paths, weights (B, 15), x_phi_d (B, 3), pref=None) ->
-    (states', TickOut batched): one lockstep control tick."""
+    (states', TickOut batched): one lockstep control tick.  ``solve_fn``
+    (batched, see ``engine.tick``) replaces the built-in solver."""
     engine.full_f32_matmuls()
     coeffs, limits = _constants(cfg, dtype, device)
 
     def vtick(states, paths, weights, x_phi_d, pref=None):
         return engine.tick(cfg, scfg, coeffs, limits, states, paths, weights,
-                           x_phi_d, None, pref)
+                           x_phi_d, solve_fn, pref)
 
     return vtick
 

@@ -418,7 +418,11 @@ def tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
                                         pref=pref, reg0=reg0)
     else:
         u_opt, stats = solve_fn(params, state.u_warm)
+    # A solve may leave optional SolveStats fields None (the oracles do).
+    stats_dims = type(stats)(*(None if v is None else 0 for v in stats))
+    out_dims = TickOut(*(stats_dims if f == "stats" else 0 for f in TickOut._fields))
     return vmap(
         lambda s, p, pa, u, st: postsolve(cfg, scfg, coeffs, s, p, pa, u, st,
-                                          limits=limits)
+                                          limits=limits),
+        in_dims=(0, 0, 0, 0, stats_dims), out_dims=(0, out_dims),
     )(state, path, params, u_opt, stats)

@@ -117,13 +117,22 @@ class ClosedLoopRunner:
     asks for the CPU).  ``dtype=None`` serves float32 on a CUDA device and
     float64 on the CPU; float64 on a CUDA device raises (the JAX package's
     default is float64).  The solver defaults to ``SolverConfig()`` as in
-    the JAX package."""
+    the JAX package.
+
+    ``solve_fn`` (batched, see ``engine.tick``) replaces the built-in
+    solver, as the parity oracles do; such a solve never reaches the
+    float32 kernel, so any ``dtype`` is served on any device (float64 when
+    None)."""
 
     def __init__(self, scenario: Scenario,
                  solver_cfg: solver_mod.SolverConfig | None = None,
-                 dtype=None, capacity: int | None = None, device="cuda"):
+                 dtype=None, capacity: int | None = None, device="cuda",
+                 solve_fn=None):
         self.device = torch.device(device)
-        self.dtype = serving_dtype(self.device, dtype)
+        if solve_fn is None:
+            self.dtype = serving_dtype(self.device, dtype)
+        else:
+            self.dtype = dtype or torch.float64
         self.scenario = scenario
         self.cfg = ocp.OcpConfig(N=scenario.N, nr_segs=scenario.nr_segs, dt=scenario.dt)
         self.scfg = solver_cfg or solver_mod.SolverConfig()
@@ -137,7 +146,7 @@ class ClosedLoopRunner:
             self.cfg, torch.as_tensor(scenario.q0, device=self.device)[None], dtype=self.dtype)
         self._set_targets()
         self._tick = batch_mod.make_batched_tick(self.cfg, self.scfg, dtype=self.dtype,
-                                                 device=self.device)
+                                                 device=self.device, solve_fn=solve_fn)
         self._horizon_eval = make_horizon_eval(self.cfg, self.coeffs)
 
     def _set_targets(self):

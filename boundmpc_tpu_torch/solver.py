@@ -52,7 +52,7 @@ class SolverConfig(NamedTuple):
     tol_feas: float = 1e-4
     stall_iters: int = 0  # 0 disables
     # KKT step method: "qr" (exact row-reduced stack, the production path)
-    # or "qr_full" (the unreduced reference stack, not ported).
+    # or "qr_full" (the unreduced stack, the reduction's yardstick).
     method: str = "qr"
     # Barrier weight for warm-started re-solves.
     mu_warm: float = 1e-4
@@ -234,6 +234,42 @@ def _dyn_rows(cfg: ocp.OcpConfig) -> np.ndarray:
     return (np.arange(cfg.N)[:, None] * blk + np.arange(18)[None, :]).ravel()
 
 
+def make_full_jacobians(cfg: ocp.OcpConfig, scfg: SolverConfig,
+                        coeffs: jerkint.JerkCoeffs,
+                        limits: kinematics.RobotLimits, dtype):
+    """Per lane ``(u_flat, params) -> (r, c, Jr, Jc)``: the values and the
+    Jacobians of every residual and constraint row, by ``scfg.jac``
+    ("structured" or "ad")."""
+    N, nu = cfg.N, cfg.nr_joints + 1
+    dev = coeffs.t.device
+    if scfg.jac == "structured":
+        lmaps = jmod.linear_maps(cfg, dtype, dev)
+
+        def structured(u, params):
+            return jmod.residuals_constraints_and_jacobians(
+                cfg, coeffs, lmaps, params, u.reshape(N, nu), limits,
+                scaled=scfg.scale_constraints, margin=scfg.margin)
+
+        return structured
+    if scfg.jac != "ad":
+        raise ValueError(f"unknown jac={scfg.jac!r}")
+    eye_n = torch.eye(N * nu, dtype=dtype, device=dev)
+
+    def rc(u_flat, params):
+        return ocp.residuals_and_constraints(
+            cfg, coeffs, params, u_flat.reshape(N, nu), limits,
+            scaled=scfg.scale_constraints, margin=scfg.margin)
+
+    def ad(u, params):
+        r, c = rc(u, params)
+        # One forward-mode sweep for both Jacobians: n tangents.
+        Jr, Jc = vmap(lambda t: jvp(lambda v: rc(v, params), (u,), (t,))[1],
+                      out_dims=(1, 1))(eye_n)
+        return r, c, Jr, Jc
+
+    return ad
+
+
 def make_reduced_jacobians(cfg: ocp.OcpConfig, scfg: SolverConfig,
                            coeffs: jerkint.JerkCoeffs,
                            limits: kinematics.RobotLimits, dtype):
@@ -251,56 +287,59 @@ def make_reduced_jacobians(cfg: ocp.OcpConfig, scfg: SolverConfig,
                 scaled=scfg.scale_constraints, margin=scfg.margin)
 
         return structured
-    if scfg.jac != "ad":
-        raise ValueError(f"unknown jac={scfg.jac!r}")
-    eye_n = torch.eye(N * nu, dtype=dtype, device=dev)
+    full = make_full_jacobians(cfg, scfg, coeffs, limits, dtype)
     dyn_idx = torch.as_tensor(_dyn_rows(cfg), device=dev)
     n_nl = 5 * N
 
-    def rc(u_flat, params):
-        return ocp.residuals_and_constraints(
-            cfg, coeffs, params, u_flat.reshape(N, nu), limits,
-            scaled=scfg.scale_constraints, margin=scfg.margin)
-
     def ad(u, params):
-        r, c = rc(u, params)
-        # One forward-mode sweep for both Jacobians: n tangents.
-        Jr, Jc = vmap(lambda t: jvp(lambda v: rc(v, params), (u,), (t,))[1],
-                      out_dims=(1, 1))(eye_n)
+        r, c, Jr, Jc = full(u, params)
         return r, c, Jr[dyn_idx], Jc[:n_nl]
 
     return ad
 
 
-def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
-                 coeffs: jerkint.JerkCoeffs, limits: kinematics.RobotLimits,
-                 dtype):
-    """Build ``step(st: LoopState, ctx: StepCtx) -> LoopState`` — ONE damped
-    Gauss-Newton iteration for a BATCH of lanes (leading axis): KKT step via
-    QR least squares, parallel Armijo line search, LM damping, mu
-    continuation and convergence logic.  ``method="qr"`` only; the
-    Jacobians by ``jac="structured"`` (per-stage jacfwd chained through the
-    constant maps) or ``jac="ad"`` (one 80-tangent forward sweep)."""
-    if scfg.method != "qr":
-        raise NotImplementedError(f"step method {scfg.method!r} is not ported")
+def make_assembler(cfg: ocp.OcpConfig, scfg: SolverConfig,
+                   coeffs: jerkint.JerkCoeffs, limits: kinematics.RobotLimits,
+                   dtype):
+    """Per lane ``(st: LoopState, ctx: StepCtx) -> (A, b, r, c, g)``: the
+    weighted least-squares system of one damped Gauss-Newton step, by
+    ``scfg.method``, with the residuals r, constraints c and gradient g.
+
+        A = [sqrt(2 rho) Jr; sqrt(W) Jc; sqrt(reg) I],
+        b = [sqrt(2 rho) r; mu beta' / sqrt(W); 0]
+    so that A^T A du = -A^T b is the damped GN system H du = -g.
+
+    "qr" is the exact row reduction of that stack (m = 550 at N = 10, the
+    production path); "qr_full" is the unreduced stack itself (m = 1100),
+    the yardstick the reduction is held to."""
     N, nu = cfg.N, cfg.nr_joints + 1
     n = N * nu
     dev = coeffs.t.device
-
-    def rc(u_flat, params):
-        return ocp.residuals_and_constraints(
-            cfg, coeffs, params, u_flat.reshape(N, nu), limits,
-            scaled=scfg.scale_constraints, margin=scfg.margin,
-        )
-
-    def merit(u_flat, mu, rho, params):
-        r, c = rc(u_flat, params)
-        return rho * torch.sum(r * r) + mu * torch.sum(_barrier(-c, scfg.delta))
-
-    ls_alphas = scfg.ls_decay ** torch.arange(scfg.n_ls, dtype=dtype, device=dev)
     eye_n = torch.eye(n, dtype=dtype, device=dev)
-    _jacobians_reduced = make_reduced_jacobians(cfg, scfg, coeffs, limits, dtype)
 
+    if scfg.method == "qr_full":
+        _jacobians_full = make_full_jacobians(cfg, scfg, coeffs, limits, dtype)
+        zeros_n = torch.zeros(n, dtype=dtype, device=dev)
+
+        def assemble_full(st: LoopState, ctx: StepCtx):
+            u, mu, reg, rho = st.u, st.mu, st.reg, st.rho
+            r, c, Jr, Jc = _jacobians_full(u, ctx.params)
+            z = -c
+            d1 = _barrier_d1(z, scfg.delta)
+            g = 2.0 * rho * (Jr.T @ r) - mu * (Jc.T @ d1)
+            w = mu * _barrier_d2(z, scfg.delta)
+            sqw = torch.sqrt(w)
+            rhs_c = mu * d1 / torch.clamp(sqw, min=1e-30)
+            sq2 = torch.sqrt(2.0 * rho)
+            A = torch.cat([sq2 * Jr, sqw[:, None] * Jc, torch.sqrt(reg) * eye_n], dim=0)
+            b = torch.cat([sq2 * r, -rhs_c, zeros_n], dim=0)
+            return A, b, r, c, g
+
+        return assemble_full
+    if scfg.method != "qr":
+        raise ValueError(f"unknown step method {scfg.method!r}")
+
+    _jacobians_reduced = make_reduced_jacobians(cfg, scfg, coeffs, limits, dtype)
     # --- exact row reduction for the QR stack ------------------------------
     # Per stage: 18 state-dependent residual rows (e_p 3, e_r 3, v 6, a 6),
     # then 4*nj + 4 rows AFFINE in u whose factor is the setup-time prefactor
@@ -324,11 +363,6 @@ def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
     Jq0, Jdq0, Jphi0, Jdphi0 = jmod.box_jacobians(cfg, dtype, dev)
 
     def assemble(st: LoopState, ctx: StepCtx):
-        """Per lane: the stacked weighted system (A, b) and the gradient.
-
-            A = [sqrt(2 rho) Jr; sqrt(W) Jc; sqrt(reg) I],
-            b = [sqrt(2 rho) r; mu beta' / sqrt(W); 0]
-        so that A^T A du = -A^T b is the damped GN system H du = -g."""
         u, mu, reg, rho = st.u, st.mu, st.reg, st.rho
         params = ctx.params
         r, c, Jr_dyn, Jc_nl = _jacobians_reduced(u, params)
@@ -373,6 +407,35 @@ def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
             -mu * (d1[s_uup] - d1[s_ulo]) / s_u,
         ])
         return A, b, r, c, g
+
+    return assemble
+
+
+def make_stepper(cfg: ocp.OcpConfig, scfg: SolverConfig,
+                 coeffs: jerkint.JerkCoeffs, limits: kinematics.RobotLimits,
+                 dtype):
+    """Build ``step(st: LoopState, ctx: StepCtx) -> LoopState`` — ONE damped
+    Gauss-Newton iteration for a BATCH of lanes (leading axis): the KKT step
+    by QR least squares on the system of ``make_assembler`` (``method="qr"``
+    or ``"qr_full"``), parallel Armijo line search, LM damping, mu
+    continuation and convergence logic.  The Jacobians by
+    ``jac="structured"`` (per-stage jacfwd chained through the constant
+    maps) or ``jac="ad"`` (one 80-tangent forward sweep)."""
+    N, nu = cfg.N, cfg.nr_joints + 1
+    dev = coeffs.t.device
+
+    def rc(u_flat, params):
+        return ocp.residuals_and_constraints(
+            cfg, coeffs, params, u_flat.reshape(N, nu), limits,
+            scaled=scfg.scale_constraints, margin=scfg.margin,
+        )
+
+    def merit(u_flat, mu, rho, params):
+        r, c = rc(u_flat, params)
+        return rho * torch.sum(r * r) + mu * torch.sum(_barrier(-c, scfg.delta))
+
+    ls_alphas = scfg.ls_decay ** torch.arange(scfg.n_ls, dtype=dtype, device=dev)
+    assemble = make_assembler(cfg, scfg, coeffs, limits, dtype)
 
     def update(st: LoopState, ctx: StepCtx, du, r, c, g) -> LoopState:
         """Per lane: line search, LM damping, mu continuation, convergence."""

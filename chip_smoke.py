@@ -48,7 +48,23 @@ Phases (any failure exits nonzero and prints no result line):
      experiment1 log through ``generate_report`` (npz keys, finite values,
      t_comp_avg > 0, and the derivative cross-check of the JAX package's
      tests/test_report.py) and lane 0 of the phase-6 MPCData log through
-     ``report_from_telemetry``.
+     ``report_from_telemetry``;
+ 11. the unreduced QR stack (``method="qr_full"``, m = 1100: the kernel over
+     two chunks) at experiment1 from rest, B = 1, float32, RUNTIME_F32: one
+     GN step's du from the same LoopState under ``qr`` and ``qr_full``
+     (relative difference <= DU_TOL), then a whole ``qr_full`` solve (kernel
+     launches == loop iterations, a finite plan) and a ``qr`` one, the same
+     step on the CPU in float32 and float64 and the solves in float32 logged
+     beside them,
+     and the kernel, the plain version and ``torch.linalg.lstsq`` timed on
+     the ``qr_full`` solve's first stack;
+ 12. the parity oracles in float64 on the card: ``OracleSolver`` at
+     experiment1 from rest against the same solve on the CPU (ORACLE_OBJ_TOL,
+     ORACLE_U_TOL) and within 1e-3 of the port's float64 CPU Gauss-Newton
+     objective (tests/test_parity.py), then ``RefNlpSolver`` warm-started
+     from that GN optimum under tests/test_ref_nlp_parity.py's gates at
+     experiment1 and experiment2 from rest, and its dynamics equalities on
+     a rollout of a seeded plan < 1e-9.
 Then one JSON line describing the kernels, and last the device JSON line.
 """
 import importlib.util
@@ -64,7 +80,7 @@ from types import SimpleNamespace
 import numpy as np
 
 B_MAIN = 256
-K_MAIN = 12  # stream ticks, one executor call; keeps the script under 10 minutes
+K_MAIN = 6  # stream ticks, one executor call; keeps the script under 10 minutes
 B_SMALL, K_SMALL = 4, 4
 # Phase 3: the main path's shape, a larger batch, several chunks, ragged rows
 # with a small n, the widest n the kernel takes, one scenario.
@@ -72,7 +88,7 @@ TSQR_SHAPES = ((256, 550, 80), (1024, 550, 80), (7, 1100, 80), (5, 173, 10),
                (3, 700, 127), (1, 550, 80))
 TIMED_SHAPES = ((256, 550, 80), (1024, 550, 80), (1, 550, 80))
 TIMING_REPS = 20
-PLAIN_REPS = 5
+PLAIN_REPS = 3  # the plain version and the library call are 400-4000x slower
 LOCKSTEP_TICKS = 3
 SINGLE_TICKS = 30  # experiment1, the JAX package's float32 closed-loop gates
 # Then experiment2 after a replan, under the replan contract of
@@ -80,15 +96,26 @@ SINGLE_TICKS = 30  # experiment1, the JAX package's float32 closed-loop gates
 # JAX package itself holds it over the first 12 ticks and fails ticks 13-14
 # (tests/jax_replan_f32.py), so the window here is 10 ticks.
 REPLAN_TICKS = 10
-API_STEPS = 10
+API_STEPS = 5
 # Structured vs AD Jacobian, float32, relative to the largest entry: the two
 # agree to 1.8e-7 in float32 and 3.5e-16 in float64 on the CPU.
 JAC_TOL = 1e-5
-SHARD_TICKS = 3  # phase 9's stream ticks
+SHARD_TICKS = 2  # phase 9's stream ticks; 2 keeps the script under 10 minutes
 # Phase 10: what the JAX package's tests/test_report.py requires of the npz.
 REPORT_KEYS = ("e_p_b1", "bounds", "bound_pl_proj_xy", "bound_pu_proj_xz", "condition_number",
                "manipulability", "e_p", "de_p", "e_r", "de_r", "horizon_dddq", "t_loop",
                "t_overhead", "audit_e_p_par")
+# Phase 11: qr against qr_full du from one LoopState, float32, relative to
+# the largest entry.  The same step on the CPU (the plain version) differs
+# by about 1e-5 in float32 and 1e-14 in float64 (the phase logs both); a
+# wrong row of either stack moves du at O(1).
+DU_TOL = 1e-3
+# Phase 12: the oracle on the card against the same solve on the CPU, both
+# float64 (objective relative, plan absolute).  The H100 run that set them
+# gave 0 and 7.5e-14 after 183 SLSQP iterations on each side.
+ORACLE_OBJ_TOL = 1e-10
+ORACLE_U_TOL = 1e-8
+REF_NLP_ITERS = 60  # tests/test_ref_nlp_parity.py's cap
 OUT = Path(__file__).resolve().parent / "build" / "boundmpc_tpu_torch" / "smoke"
 
 
@@ -163,32 +190,39 @@ def check_shape(torch, tsqr, shape, seed):
         f"kernel {rel['kernel']:.3e} plain {rel['plain']:.3e}")
     if not rel["kernel"] < 5e-3:
         fail(f"{shape}: kernel weighted-row relative error {rel['kernel']:.3e} >= 5e-3")
-    return A, b, max_abs
+    return A, b
+
+
+def _time_kernel(torch, tsqr, bench, A, b):
+    """Kernel, plain version and torch.linalg.lstsq timed in turns on (A, b),
+    beside the kernel's bound; and the kernel's max abs error against the
+    plain version."""
+    err = float((tsqr.ls_solve(A, b) - tsqr.ls_solve_reference(A, b)).abs().max())
+    run = {"plain": lambda: tsqr.ls_solve_reference(A, b),
+           "kernel": lambda: tsqr.ls_solve(A, b),
+           "library": lambda: torch.linalg.lstsq(A, -b[..., None]).solution}
+    reps = {"plain": PLAIN_REPS, "kernel": TIMING_REPS, "library": PLAIN_REPS}
+    ms = {k: [] for k in run}
+    for k in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        ms[k].append(bench.cuda_ms(run[k], reps[k]))
+    bound, by = bench.bound_ms(*A.shape)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    return ms, dict(max_abs_err=err, ms=mean["kernel"], plain_ms=mean["plain"],
+                    library_ms=mean["library"], bound_ms=bound, bound_by=by)
 
 
 def phase_kernel(torch, tsqr, bench):
     timed = {}
     for i, shape in enumerate(TSQR_SHAPES):
-        A, b, max_abs = check_shape(torch, tsqr, shape, i)
+        A, b = check_shape(torch, tsqr, shape, i)
         if shape not in TIMED_SHAPES:
             continue
-        # Plain and kernel in turns, the library call between them.
-        run = {"plain": lambda: tsqr.ls_solve_reference(A, b),
-               "kernel": lambda: tsqr.ls_solve(A, b),
-               "library": lambda: torch.linalg.lstsq(A, -b[..., None]).solution}
-        reps = {"plain": PLAIN_REPS, "kernel": TIMING_REPS, "library": PLAIN_REPS}
-        ms = {k: [] for k in run}
-        for k in ("plain", "kernel", "library", "library", "kernel", "plain"):
-            ms[k].append(bench.cuda_ms(run[k], reps[k]))
-        bound, by = bench.bound_ms(*shape)
-        mean = {k: sum(v) / len(v) for k, v in ms.items()}
-        timed[shape] = dict(max_abs_err=max_abs, ms=mean["kernel"], plain_ms=mean["plain"],
-                            library_ms=mean["library"], bound_ms=bound, bound_by=by,
-                            bound_share=bound / mean["kernel"])
+        ms, t = _time_kernel(torch, tsqr, bench, A, b)
+        timed[shape] = dict(t, bound_share=t["bound_ms"] / t["ms"])
         log(f"tsqr time at {shape}: kernel {ms['kernel'][0]:.4f} / {ms['kernel'][1]:.4f} ms, "
             f"plain {ms['plain'][0]:.4f} / {ms['plain'][1]:.4f} ms, torch.linalg.lstsq "
-            f"{ms['library'][0]:.4f} / {ms['library'][1]:.4f} ms, bound {bound:.3e} ms "
-            f"({by}), kernel at {100 * bound / mean['kernel']:.2f}% of the bound "
+            f"{ms['library'][0]:.4f} / {ms['library'][1]:.4f} ms, bound {t['bound_ms']:.3e} ms "
+            f"({t['bound_by']}), kernel at {100 * t['bound_ms'] / t['ms']:.2f}% of the bound "
             f"(CUDA events, {TIMING_REPS} / {PLAIN_REPS} reps)")
 
     try:
@@ -594,6 +628,181 @@ def phase_report(generate_report, report_from_telemetry, scenario, log1, exp1, d
         fail(f"report derivative cross-check {err:.3e} >= 5e-3")
 
 
+def _start(torch, runner, engine, solver, kin, scfg):
+    """Presolve of a runner's batch: (params, warm plan, mu0, reg0), the
+    tick's StepCtx and the solver's first LoopState, and the limits."""
+    from torch.func import vmap
+
+    cfg, co, dt = runner.cfg, runner.coeffs, runner.dtype
+    lim = kin.robot_limits(dtype=dt, device=runner.device)
+    st, params, mu0, reg0 = vmap(lambda s, p, w, x: engine.presolve(
+        cfg, scfg, s, p, w, x, coeffs=co, limits=lim))(runner.state, runner.path,
+                                                         runner.weights, runner.x_phi_d)
+    ctx = vmap(lambda p, R0, Q0T: solver.make_ctx(cfg, co, p, solver.QrPrefactor(R0, Q0T), dt))(
+        params, runner._pref.R0, runner._pref.Q0T)
+    ls = vmap(lambda u, m, g: solver.init_loop(scfg, u, m, g))(st.u_warm, mu0, reg0)
+    return SimpleNamespace(params=params, u_warm=st.u_warm, mu0=mu0, reg0=reg0, ctx=ctx, ls=ls,
+                           limits=lim)
+
+
+def _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, device, dtype,
+                     solve=True):
+    """One robot at experiment1 from rest on ``device`` in ``dtype``: the
+    first GN step's stacks and du under ``qr`` and ``qr_full`` from the same
+    LoopState, then (``solve``) a solve under each (its plan, stats,
+    launches, wall s)."""
+    from torch.func import vmap
+
+    runner = runtime.ClosedLoopRunner(runtime.experiment1(), solver_cfg=scfg, dtype=dtype,
+                                      device=device)
+    cfg, co = runner.cfg, runner.coeffs
+    s0 = _start(torch, runner, engine, solver, kin, scfg)
+    stacks, du, solves = {}, {}, {}
+    for method in ("qr", "qr_full"):
+        asm = vmap(solver.make_assembler(cfg, scfg._replace(method=method), co, s0.limits,
+                                         dtype))
+        A, b = (t.contiguous() for t in asm(s0.ls, s0.ctx)[:2])
+        stacks[method] = (A, b)
+        du[method] = tsqr.ls_solve(A, b)
+    for method in ("qr_full", "qr") if solve else ():
+        tsqr.ls_solve.launches = 0
+        t0 = time.perf_counter()
+        u, st = solver.solve(cfg, scfg._replace(method=method), co, s0.params, s0.u_warm,
+                             s0.limits, mu0=s0.mu0, pref=runner._pref, reg0=s0.reg0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        solves[method] = (u, st, tsqr.ls_solve.launches, time.perf_counter() - t0)
+    rel = float((du["qr"] - du["qr_full"]).abs().max() / du["qr_full"].abs().max())
+    return stacks, du, rel, solves
+
+
+def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg):
+    """The unreduced stack at experiment1 from rest, B = 1, float32, beside
+    the same step on the CPU (the plain version) in float32 and float64 and
+    the same solves in float32."""
+    cpu = {dt: _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, "cpu", dt,
+                                solve=dt == torch.float32)
+           for dt in (torch.float32, torch.float64)}
+    stacks, du, rel, solves = _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg,
+                                               "cuda", torch.float32)
+    shapes = {m: tuple(A.shape) for m, (A, _) in stacks.items()}
+    rc = tsqr.chunk_rows(*shapes["qr_full"][1:])
+    log(f"qr_full: stacks {shapes}, {-(-shapes['qr_full'][1] // rc)} chunks of {rc} rows; "
+        f"first GN step du qr vs qr_full {rel:.3e} relative (gate {DU_TOL:g}; the CPU's plain "
+        f"version: float32 {cpu[torch.float32][2]:.3e}, float64 {cpu[torch.float64][2]:.3e}), "
+        f"|du| max {float(du['qr_full'].abs().max()):.4f}")
+    if not (rel <= DU_TOL and bool(torch.isfinite(du["qr_full"]).all())):
+        fail(f"qr_full: du differs from the reduced stack's by {rel:.3e} > {DU_TOL}")
+
+    for where, res in (("card", solves), ("CPU float32", cpu[torch.float32][3])):
+        for method, (u, st, launches, wall) in res.items():
+            viol, conv = float(st.viol[0]), bool(st.converged[0])
+            ok = viol < 1e-4 or (conv and viol < 1e-3)
+            log(f"qr_full: {where} {method} solve from rest: {int(st.iters[0])} iterations, "
+                f"kernel launches {launches}, viol {viol:.3e}, converged {conv}, success {ok}, "
+                f"obj {float(st.obj[0]):.6f}, {wall:.2f} s wall "
+                f"({1e3 * wall / int(st.n_loop[0]):.1f} ms per GN iteration)")
+    u, st, launches, _ = solves["qr_full"]
+    if launches != int(st.n_loop[0]) or launches < 1:
+        fail(f"qr_full: kernel launches {launches} != loop iterations {int(st.n_loop[0])}")
+    if not bool(torch.isfinite(u).all()):
+        fail("qr_full: non-finite plan")
+
+    ms, timed = _time_kernel(torch, tsqr, bench, *stacks["qr_full"])
+    log(f"tsqr time at {shapes['qr_full']} (the qr_full stack): kernel {ms['kernel'][0]:.4f} / "
+        f"{ms['kernel'][1]:.4f} ms, plain {ms['plain'][0]:.4f} / {ms['plain'][1]:.4f} ms, "
+        f"torch.linalg.lstsq {ms['library'][0]:.4f} / {ms['library'][1]:.4f} ms, bound "
+        f"{timed['bound_ms']:.3e} ms ({timed['bound_by']}), kernel at "
+        f"{100 * timed['bound_ms'] / timed['ms']:.2f}% of the bound; kernel vs plain max abs "
+        f"err {timed['max_abs_err']:.3e}")
+    return launches, timed
+
+
+def phase_oracles(torch, runtime, engine, solver, kin, jerkint, parity):
+    """The parity oracles in float64 on the card."""
+    from torch.func import vmap
+
+    f64 = torch.float64
+    lim_c = kin.robot_limits(dtype=f64, device="cpu")
+    lim_g = kin.robot_limits(dtype=f64, device="cuda")
+
+    def to_card(tree):
+        return type(tree)(*(t.cuda() for t in tree))
+
+    def gn(scenario):
+        """The port's float64 CPU GN solve at rest under SolverConfig()."""
+        r = runtime.ClosedLoopRunner(scenario, device="cpu")
+        params = vmap(lambda s, p, w, x: engine.assemble_params(r.cfg, s, p, w, x))(
+            r.state, r.path, r.weights, r.x_phi_d)
+        u, st = solver.solve(r.cfg, r.scfg, r.coeffs, params, r.state.u_warm, lim_c)
+        return r, params, u, st
+
+    r, params_c, u_gn, s_gn = gn(runtime.experiment1())
+    cfg = r.cfg
+    co_g = jerkint.coeff_matrices(cfg.N, cfg.dt, dtype=f64, device="cuda")
+    params_g = to_card(params_c)
+    out = {}
+    for dev, co, lim, p in (("cuda", co_g, lim_g, params_g), ("cpu", r.coeffs, lim_c, params_c)):
+        t0 = time.perf_counter()
+        orc = parity.OracleSolver(cfg, co, lim)
+        out[dev] = orc(p, r.state.u_warm.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] += (time.perf_counter() - t0,)
+    (u_g, s_g, t_g), (u_c, s_c, t_c) = out["cuda"], out["cpu"]
+    obj_g, obj_c, obj_gn = float(s_g.obj[0]), float(s_c.obj[0]), float(s_gn.obj[0])
+    d_obj = abs(obj_g - obj_c) / abs(obj_c)
+    d_u = float((u_g.cpu() - u_c).abs().max())
+    gap = abs(obj_gn - obj_g) / abs(obj_g)
+    log(f"oracle: SLSQP at experiment1 from rest, card {int(s_g.iters[0])} iterations "
+        f"{t_g:.1f} s ({1e3 * t_g / max(int(s_g.iters[0]), 1):.0f} ms per iteration), CPU "
+        f"{int(s_c.iters[0])} iterations {t_c:.1f} s; card vs CPU objective {d_obj:.3e} "
+        f"relative, plan {d_u:.3e} max abs; converged {bool(s_g.converged[0])}, viol "
+        f"{float(s_g.viol[0]):.3e}; objective gap to the CPU GN solve {gap:.3e} "
+        f"(GN {int(s_gn.iters[0])} iterations, viol {float(s_gn.viol[0]):.3e})")
+    if not bool(s_g.converged[0]):
+        fail("oracle: SLSQP did not converge on the card")
+    if not (d_obj <= ORACLE_OBJ_TOL and d_u <= ORACLE_U_TOL):
+        fail(f"oracle: card and CPU solves differ (objective {d_obj:.3e}, plan {d_u:.3e})")
+    if not gap < 1e-3:
+        fail(f"oracle: objective gap to the GN solve {gap:.3e} >= 1e-3")
+    if not (bool(s_gn.converged[0]) or float(s_gn.viol[0]) < 1e-4) or float(s_gn.viol[0]) >= 1e-3:
+        fail("oracle: the CPU GN solve fails the reference's acceptance")
+
+    ref = parity.RefNlpSolver(cfg, co_g, lim_g, maxiter=REF_NLP_ITERS)
+    u_seed = torch.as_tensor(np.random.default_rng(0).uniform(-5, 5, size=(cfg.N, 8)),
+                             device="cuda")
+    p0 = type(params_g)(*(t[0] for t in params_g))
+    ceq = float(ref._ceq(p0, ref._pack_warm(p0, u_seed)).abs().max())
+    log(f"ref_nlp: dynamics equalities on the rollout of a seeded plan, max abs {ceq:.3e} "
+        f"(gate 1e-9)")
+    if not ceq < 1e-9:
+        fail(f"ref_nlp: dynamics equalities {ceq:.3e} >= 1e-9 on a rollout")
+    for name in ("experiment1", "experiment2"):
+        if name == "experiment2":
+            r, params_c, u_gn, s_gn = gn(runtime.experiment2())
+            params_g = to_card(params_c)
+        t0 = time.perf_counter()
+        u_r, s_r = ref(params_g, u_gn.cuda())
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t0
+        viol = float(s_r.viol[0])
+        rel = abs(float(s_r.obj[0]) - float(s_gn.obj[0])) / max(abs(float(s_gn.obj[0])), 1e-12)
+        du0 = float((u_r[0, 0].cpu() - u_gn[0, 0]).abs().max())
+        log(f"ref_nlp: {name} from rest, warm from the CPU GN optimum: {int(s_r.iters[0])} "
+            f"iterations in {t_r:.1f} s, viol {viol:.3e}, objective moved {rel:.3e} relative, "
+            f"|du0| {du0:.3e}")
+        if not viol < 1e-4:
+            fail(f"ref_nlp: {name}: the stage NLP left feasibility (viol {viol:.3e})")
+        if not rel < 2e-3:
+            fail(f"ref_nlp: {name}: the stage NLP moved the objective by {rel:.3e}")
+        # At experiment1 from rest the executed control moves by 1.106 in
+        # both packages on the CPU (the JAX test of that case is an xfail);
+        # the gate holds where the JAX package's own test holds it.
+        if name == "experiment2" and not du0 < 0.5:
+            fail(f"ref_nlp: {name}: executed control diverged by {du0:.3e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -602,7 +811,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from boundmpc_tpu_torch import (api, batch, distributed, engine, jerkint, kinematics, ocp,
-                                    solver, stream as stream_mod)
+                                    parity, solver, stream as stream_mod)
     from boundmpc_tpu_torch.observability import generate_report
     from boundmpc_tpu_torch.native import telemetry
     from boundmpc_tpu_torch.ops import _build, tsqr, tsqr_bench
@@ -624,6 +833,9 @@ def main() -> int:
     # Lane 0 of the phase-6 fleet is experiment1.
     phase_report(generate_report, mpcdata.report_from_telemetry,
                  runtime.fleet_scenarios(1)[0], log1, exp1)
+    launches_qr_full, at_qr_full = phase_qr_full(torch, runtime, engine, solver, kinematics,
+                                                 tsqr, tsqr_bench, scfg)
+    phase_oracles(torch, runtime, engine, solver, kinematics, jerkint, parity)
 
     b1 = timed[TIMED_SHAPES[2]]
     print(json.dumps({"kernels": [{
@@ -632,12 +844,15 @@ def main() -> int:
         "replaces": "boundmpc_tpu/ops/tsqr.py:37",
         "launches": launches, "launches_lockstep": launches_lockstep,
         "launches_single": launches_single, "launches_sharded": launches_sharded,
+        "launches_qr_full": launches_qr_full,
         **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
                      "library_ms": timed[TIMED_SHAPES[1]]["library_ms"],
                      "bound_ms": timed[TIMED_SHAPES[1]]["bound_ms"]},
         "at_b1": {"ms": b1["ms"], "plain_ms": b1["plain_ms"], "library_ms": b1["library_ms"],
-                  "bound_ms": b1["bound_ms"]}}]}))
+                  "bound_ms": b1["bound_ms"]},
+        "at_qr_full": {k: at_qr_full[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "max_abs_err")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

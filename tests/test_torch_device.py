@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from boundmpc_tpu_torch import api, batch, convert, ocp, solver, stream
+from boundmpc_tpu_torch import api, batch, convert, ocp, parity, solver, stream
 from boundmpc_tpu_torch.ops.tsqr import serving_dtype
 from boundmpc_tpu_torch.runtime import (ClosedLoopRunner, FleetRunner, default_path,
                                         experiment1)
@@ -19,6 +19,8 @@ ENTRY_POINTS = {
     "runtime.FleetRunner": FleetRunner,
     "runtime.ClosedLoopRunner": ClosedLoopRunner,
     "api.BoundMPC": api.BoundMPC,
+    "parity.oracle_runner": parity.oracle_runner,
+    "parity.ref_nlp_runner": parity.ref_nlp_runner,
 }
 SERVING = ("runtime.FleetRunner", "runtime.ClosedLoopRunner", "api.BoundMPC")
 
@@ -51,6 +53,8 @@ def _call_with_defaults(name):
         return batch.make_batched_tick(cfg, scfg)
     if name in SERVING:
         return _serving(name)
+    if name.startswith("parity."):
+        return ENTRY_POINTS[name](experiment1())
     return ENTRY_POINTS[name](cfg, scfg, 2)
 
 

@@ -141,7 +141,8 @@ def test_port_imports_no_jax():
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
             "for want in ('api', 'runtime.fleet', 'runtime.runner', 'runtime.mpcdata',\n"
             "             'native.telemetry', 'observability.horizon', 'jacobian',\n"
-            "             'distributed', 'observability.report'):\n"
+            "             'distributed', 'observability.report', 'parity.oracle',\n"
+            "             'parity.ref_nlp'):\n"
             "    assert p.__name__ + '.' + want in names, want\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
@@ -150,6 +151,8 @@ def test_port_imports_no_jax():
             "from boundmpc_tpu_torch.distributed import ShardedEngine, init_multihost\n"
             "from boundmpc_tpu_torch.observability import generate_report\n"
             "from boundmpc_tpu_torch.runtime.mpcdata import report_from_telemetry\n"
+            "from boundmpc_tpu_torch.parity import (OracleSolver, RefNlpSolver, oracle_runner,\n"
+            "                                       ref_nlp_runner)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'boundmpc_tpu' or k.startswith('boundmpc_tpu.'))\n"
             "assert not bad, bad\n"
