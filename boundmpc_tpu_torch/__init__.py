@@ -7,8 +7,8 @@ step a hand-written Hopper kernel, ``ops/tsqr.py``), the receding-horizon
 engine, the stream executor, the serving entry points: ``FleetRunner``
 and ``ClosedLoopRunner`` (``runtime``) and the reference-compatible
 ``api.BoundMPC``, the scenario-sharded fleet over ``torch.distributed``
-(``distributed``, one process per card) and the offline report
-(``observability``).  The JAX package stays the reference; this package imports
+(``distributed``, one process per card), the offline report
+(``observability``) and the command lines (``experiments``).  The JAX package stays the reference; this package imports
 torch and never jax.
 """
 

@@ -3,7 +3,8 @@
 Forward kinematics is the same unrolled product-of-exponentials chain of 9
 scalars per rotation; the Jacobian's time derivatives come from forward-mode
 AD (`torch.func.jvp`).  The base functions are single-configuration: callers
-batch them with `torch.func.vmap`.
+batch them with `torch.func.vmap` (the ``*_b`` aliases at the end are four
+of them so batched).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from .lie import matrix_to_rotvec
 
@@ -196,3 +197,10 @@ def manipulability(q: torch.Tensor) -> torch.Tensor:
 def forward_kinematics(q: torch.Tensor, dq: torch.Tensor):
     """(pose [pos, rotvec], J, dJ)."""
     return fk_pose(q), jacobian(q), djacobian(q, dq)
+
+
+# Batched conveniences (leading batch axis).
+fk_pose_b = vmap(fk_pose)
+fk_pos_b = vmap(fk_pos)
+jacobian_b = vmap(jacobian)
+djacobian_b = vmap(djacobian)

@@ -59,17 +59,35 @@ Phases (any failure exits nonzero and prints no result line):
      and the kernel, the plain version and ``torch.linalg.lstsq`` timed on
      the ``qr_full`` solve's first stack;
  12. the parity oracles in float64 on the card: ``OracleSolver`` at
-     experiment1 from rest against the same solve on the CPU (ORACLE_OBJ_TOL,
+     experiment1 from rest against the same solve on the CPU, run in a
+     subprocess beside it (ORACLE_OBJ_TOL,
      ORACLE_U_TOL) and within 1e-3 of the port's float64 CPU Gauss-Newton
      objective (tests/test_parity.py), then ``RefNlpSolver`` warm-started
      from that GN optimum under tests/test_ref_nlp_parity.py's gates at
      experiment1 and experiment2 from rest, and its dynamics equalities on
-     a rollout of a seeded plan < 1e-9.
-Then one JSON line describing the kernels, and last the device JSON line.
+     a rollout of a seeded plan < 1e-9;
+ 13. the command-line entry points (``boundmpc_tpu_torch.experiments``), each
+     ``main(argv)`` called in this process at a small batch: run_experiment
+     (experiment1, --f32, 5 ticks, telemetry and report), run_fleet through
+     the stream executor, through the lockstep tick with the MPCData log and
+     a checkpoint, resumed from that checkpoint, and --sharded over an NCCL
+     group of one, then the soak (B = 8, 4 ticks in chunks of 2) with its
+     worst-lane and tick-2 state dumps; each gated on its JSON line having
+     the JAX script's key set and on kernel launches == the GN loop
+     iterations the CLI reports, the soak on its gate and on its dump being
+     the tick-2 state bit for bit.
+The CPU references of phases 5, 11 and 12 (``cpu_half``) run beside the card
+phases, each in a process of its own started after phase 2, and each phase
+waits for its own.  Then one JSON line describing the kernels, and last the
+device JSON line.
 """
+import contextlib
+import faulthandler
 import importlib.util
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,7 +134,39 @@ DU_TOL = 1e-3
 ORACLE_OBJ_TOL = 1e-10
 ORACLE_U_TOL = 1e-8
 REF_NLP_ITERS = 60  # tests/test_ref_nlp_parity.py's cap
+# Phase 13: the key sets of the JAX scripts' JSON lines (experiments/*.py).
+CLI_KEYS = {
+    "run_experiment": {"scenario", "ticks", "phi_final", "phi_max", "reached_goal",
+                       "all_success", "max_viol", "t_comp_avg_ms"},
+    "run_fleet": {"mode", "batch", "ticks", "solves_per_s", "tick_ms_median", "tick_ms_p99",
+                  "success_rate", "max_viol", "n_dead", "mean_phi"},
+    "run_fleet --sharded": {"mode", "devices", "processes", "batch", "ticks", "solves_per_s",
+                            "success_rate", "n_dead", "max_viol", "mean_phi"},
+    "soak": {"soak", "success_rate", "max_viol", "n_dead", "solves_per_s", "mean_iters",
+             "p99_iters", "mean_phi_final", "worst_lanes", "failure_census", "passed"},
+}
+CLI_B = 8
+# The CPU references of phases 5, 11 and 12 run beside the card phases, one
+# process each (cpu_half), with few threads: the card phases are host-bound.
+CPU_HALVES = ("small", "qr_full", "oracle")
+CPU_HALF_THREADS = 2
+CPU_HALF_TIMEOUT = 900
+PLANT = ("q", "dq", "phi", "dphi", "pr_ref", "iw_ref", "sector")
+# A phase still running after this many seconds prints every thread's stack
+# (and again after as many more); the longest phase takes about 150 s.
+WATCHDOG_S = 300
+SOLVE_STATS = ("iters", "viol", "converged", "obj", "n_loop")
 OUT = Path(__file__).resolve().parent / "build" / "boundmpc_tpu_torch" / "smoke"
+
+
+@contextlib.contextmanager
+def clocked(name: str):
+    """Log a phase's seconds; arm the watchdog for it."""
+    faulthandler.dump_traceback_later(WATCHDOG_S, repeat=True)
+    t0 = time.perf_counter()
+    yield
+    faulthandler.cancel_dump_traceback_later()
+    log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
 
 def fail(msg: str) -> None:
@@ -290,18 +340,22 @@ def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
     return launches
 
 
-def phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet):
-    outs = {}
-    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
-        states, paths, weights, x_phi_d = build_fleet(B_SMALL, cfg, device, dtype)
-        pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=dtype)
-        fn = stream_mod.make_stream_ticks(cfg, scfg, K_SMALL, dtype=dtype, device=device)
-        outs[device] = fn(states, paths, weights, x_phi_d, pref)
-    (st_g, so_g), (st_c, so_c) = outs["cuda"], outs["cpu"]
-    succ_g, succ_c = so_g.success.cpu().numpy(), so_c.success.numpy()
-    worst = max(float((getattr(st_g, f).double().cpu() - getattr(st_c, f).double()).abs().max())
-                for f in ("q", "dq", "phi", "dphi", "pr_ref", "iw_ref", "sector"))
-    vmax = max(float(so_g.viol.max()), float(so_c.viol.max()))
+def _small_run(cfg, scfg, stream_mod, batch, build_fleet, device, dtype):
+    """Phase 5's run: the small fleet through the stream executor."""
+    states, paths, weights, x_phi_d = build_fleet(B_SMALL, cfg, device, dtype)
+    pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=dtype)
+    fn = stream_mod.make_stream_ticks(cfg, scfg, K_SMALL, dtype=dtype, device=device)
+    return fn(states, paths, weights, x_phi_d, pref)
+
+
+def phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet, cpu):
+    """The small fleet on the card in float32 against ``cpu``, the same run
+    in float64 on the CPU (``cpu_half("small")``)."""
+    st_g, so_g = _small_run(cfg, scfg, stream_mod, batch, build_fleet, "cuda", torch.float32)
+    succ_g, succ_c = so_g.success.cpu().numpy(), cpu["success"]
+    worst = max(float(np.abs(getattr(st_g, f).double().cpu().numpy()
+                             - cpu[f].astype(np.float64)).max()) for f in PLANT)
+    vmax = max(float(so_g.viol.max()), float(cpu["viol"].max()))
     log(f"reference check B={B_SMALL} K={K_SMALL}: cuda f32 vs cpu f64 success "
         f"{int(succ_g.sum())}/{int(succ_c.sum())}, max viol {vmax:.2e}, max plant-state "
         f"diff {worst:.2e}")
@@ -676,25 +730,25 @@ def _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, device, dt
     return stacks, du, rel, solves
 
 
-def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg):
+def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg, cpu):
     """The unreduced stack at experiment1 from rest, B = 1, float32, beside
-    the same step on the CPU (the plain version) in float32 and float64 and
-    the same solves in float32."""
-    cpu = {dt: _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, "cpu", dt,
-                                solve=dt == torch.float32)
-           for dt in (torch.float32, torch.float64)}
+    ``cpu``: the same step on the CPU (the plain version) in float32 and
+    float64 and the same solves in float32 (``cpu_half("qr_full")``)."""
     stacks, du, rel, solves = _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg,
                                                "cuda", torch.float32)
     shapes = {m: tuple(A.shape) for m, (A, _) in stacks.items()}
     rc = tsqr.chunk_rows(*shapes["qr_full"][1:])
     log(f"qr_full: stacks {shapes}, {-(-shapes['qr_full'][1] // rc)} chunks of {rc} rows; "
         f"first GN step du qr vs qr_full {rel:.3e} relative (gate {DU_TOL:g}; the CPU's plain "
-        f"version: float32 {cpu[torch.float32][2]:.3e}, float64 {cpu[torch.float64][2]:.3e}), "
+        f"version: float32 {float(cpu['rel_f32']):.3e}, float64 {float(cpu['rel_f64']):.3e}), "
         f"|du| max {float(du['qr_full'].abs().max()):.4f}")
     if not (rel <= DU_TOL and bool(torch.isfinite(du["qr_full"]).all())):
         fail(f"qr_full: du differs from the reduced stack's by {rel:.3e} > {DU_TOL}")
 
-    for where, res in (("card", solves), ("CPU float32", cpu[torch.float32][3])):
+    cpu_solves = {m: (None, SimpleNamespace(**{f: cpu[f"{m}.{f}"] for f in SOLVE_STATS}),
+                      int(cpu[f"{m}.launches"]), float(cpu[f"{m}.wall"]))
+                  for m in ("qr_full", "qr")}
+    for where, res in (("card", solves), ("CPU float32", cpu_solves)):
         for method, (u, st, launches, wall) in res.items():
             viol, conv = float(st.viol[0]), bool(st.converged[0])
             ok = viol < 1e-4 or (conv and viol < 1e-3)
@@ -718,45 +772,121 @@ def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg):
     return launches, timed
 
 
-def phase_oracles(torch, runtime, engine, solver, kin, jerkint, parity):
-    """The parity oracles in float64 on the card."""
+def _gn(torch, runtime, engine, solver, kin, scenario):
+    """The port's float64 CPU GN solve at rest under SolverConfig(): the
+    runner, the tick's params, the plan and its stats."""
     from torch.func import vmap
 
+    r = runtime.ClosedLoopRunner(scenario, device="cpu")
+    params = vmap(lambda s, p, w, x: engine.assemble_params(r.cfg, s, p, w, x))(
+        r.state, r.path, r.weights, r.x_phi_d)
+    lim = kin.robot_limits(dtype=torch.float64, device="cpu")
+    u, st = solver.solve(r.cfg, r.scfg, r.coeffs, params, r.state.u_warm, lim)
+    return r, params, u, st
+
+
+def cpu_half(name: str, path: str) -> None:
+    """The CPU reference of phase 5 ("small"), 11 ("qr_full") or 12
+    ("oracle"), run in a process of its own beside the card phases
+    (``start_cpu_halves``); its results to ``path`` (npz)."""
+    import torch
+    torch.set_num_threads(CPU_HALF_THREADS)
+    from boundmpc_tpu_torch import (batch, engine, kinematics, ocp, parity, runtime, solver,
+                                    stream as stream_mod)
+    from boundmpc_tpu_torch.ops import tsqr
+
+    scfg = solver.RUNTIME_F32
+    if name == "small":
+        st, so = _small_run(ocp.OcpConfig(), scfg, stream_mod, batch, runtime.build_fleet, "cpu",
+                            torch.float64)
+        out = {f: getattr(st, f).numpy() for f in PLANT}
+        out.update(success=so.success.numpy(), viol=so.viol.numpy())
+    elif name == "qr_full":
+        out = {}
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            _, _, rel, solves = _step_and_solves(torch, runtime, engine, solver, kinematics, tsqr,
+                                                 scfg, "cpu", dt, solve=dt == torch.float32)
+            out[f"rel_{tag}"] = rel
+            for m, (_, st, launches, wall) in solves.items():
+                out.update({f"{m}.{f}": getattr(st, f).numpy() for f in SOLVE_STATS})
+                out.update({f"{m}.launches": launches, f"{m}.wall": wall})
+    elif name == "oracle":
+        r, params, _, _ = _gn(torch, runtime, engine, solver, kinematics, runtime.experiment1())
+        t0 = time.perf_counter()
+        orc = parity.OracleSolver(r.cfg, r.coeffs,
+                                  kinematics.robot_limits(dtype=torch.float64, device="cpu"))
+        u, st = orc(params, r.state.u_warm)
+        out = {f: getattr(st, f).numpy() for f in ("obj", "iters", "converged", "viol")}
+        out.update(u=u.numpy(), seconds=time.perf_counter() - t0)
+    else:
+        raise ValueError(f"no CPU half named {name}")
+    np.savez(path, **out)
+
+
+def start_cpu_halves():
+    """Start the CPU halves of phases 5, 11 and 12, one process each:
+    {name: (process, npz path)}."""
+    root = Path(__file__).resolve().parent
+    halves = {}
+    for name in CPU_HALVES:
+        path = OUT / f"cpu_half_{name}.npz"
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 "import sys, chip_smoke; chip_smoke.cpu_half(*sys.argv[1:])",
+                                 name, str(path)], cwd=str(root))
+        halves[name] = (proc, path)
+    return halves
+
+
+def cpu_half_result(halves, name):
+    """Wait for one CPU half (logging how long) and load its npz."""
+    proc, path = halves[name]
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=CPU_HALF_TIMEOUT)
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the CPU half {name} exited {rc}")
+    log(f"CPU half {name}: waited {waited:.1f} s for it")
+    return np.load(path)
+
+
+def stop_cpu_halves(halves):
+    for proc, _ in halves.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_oracles(torch, runtime, engine, solver, kin, jerkint, parity, cpu):
+    """The parity oracles in float64 on the card, against ``cpu``, the
+    oracle's CPU solve (``cpu_half("oracle")``)."""
     f64 = torch.float64
-    lim_c = kin.robot_limits(dtype=f64, device="cpu")
     lim_g = kin.robot_limits(dtype=f64, device="cuda")
 
     def to_card(tree):
         return type(tree)(*(t.cuda() for t in tree))
 
     def gn(scenario):
-        """The port's float64 CPU GN solve at rest under SolverConfig()."""
-        r = runtime.ClosedLoopRunner(scenario, device="cpu")
-        params = vmap(lambda s, p, w, x: engine.assemble_params(r.cfg, s, p, w, x))(
-            r.state, r.path, r.weights, r.x_phi_d)
-        u, st = solver.solve(r.cfg, r.scfg, r.coeffs, params, r.state.u_warm, lim_c)
-        return r, params, u, st
+        return _gn(torch, runtime, engine, solver, kin, scenario)
 
     r, params_c, u_gn, s_gn = gn(runtime.experiment1())
     cfg = r.cfg
     co_g = jerkint.coeff_matrices(cfg.N, cfg.dt, dtype=f64, device="cuda")
     params_g = to_card(params_c)
-    out = {}
-    for dev, co, lim, p in (("cuda", co_g, lim_g, params_g), ("cpu", r.coeffs, lim_c, params_c)):
-        t0 = time.perf_counter()
-        orc = parity.OracleSolver(cfg, co, lim)
-        out[dev] = orc(p, r.state.u_warm.to(dev))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[dev] += (time.perf_counter() - t0,)
-    (u_g, s_g, t_g), (u_c, s_c, t_c) = out["cuda"], out["cpu"]
+    t0 = time.perf_counter()
+    u_g, s_g = parity.OracleSolver(cfg, co_g, lim_g)(params_g, r.state.u_warm.cuda())
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    u_c, t_c = torch.as_tensor(cpu["u"]), float(cpu["seconds"])
+    s_c = SimpleNamespace(**{f: torch.as_tensor(cpu[f]) for f in ("obj", "iters", "converged",
+                                                                  "viol")})
     obj_g, obj_c, obj_gn = float(s_g.obj[0]), float(s_c.obj[0]), float(s_gn.obj[0])
     d_obj = abs(obj_g - obj_c) / abs(obj_c)
     d_u = float((u_g.cpu() - u_c).abs().max())
     gap = abs(obj_gn - obj_g) / abs(obj_g)
     log(f"oracle: SLSQP at experiment1 from rest, card {int(s_g.iters[0])} iterations "
         f"{t_g:.1f} s ({1e3 * t_g / max(int(s_g.iters[0]), 1):.0f} ms per iteration), CPU "
-        f"{int(s_c.iters[0])} iterations {t_c:.1f} s; card vs CPU objective {d_obj:.3e} "
+        f"{int(s_c.iters[0])} iterations {t_c:.1f} s (its own process); card vs CPU objective "
+        f"{d_obj:.3e} "
         f"relative, plan {d_u:.3e} max abs; converged {bool(s_g.converged[0])}, viol "
         f"{float(s_g.viol[0]):.3e}; objective gap to the CPU GN solve {gap:.3e} "
         f"(GN {int(s_gn.iters[0])} iterations, viol {float(s_gn.viol[0]):.3e})")
@@ -803,6 +933,120 @@ def phase_oracles(torch, runtime, engine, solver, kin, jerkint, parity):
             fail(f"ref_nlp: {name}: executed control diverged by {du0:.3e}")
 
 
+def _cli(tsqr, module, name, argv):
+    """One CLI's ``main(argv)`` in this process, its stdout and stderr
+    captured and echoed: (exit code, JSON line, stdout, launches counted
+    here, seconds).  Fails unless the JSON line has the JAX script's key set
+    and the launches equal the GN loop iterations the CLI reports."""
+    out, err = io.StringIO(), io.StringIO()
+    tsqr.ls_solve.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = module.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    launches = tsqr.ls_solve.launches
+    log(f"cli: {name} {' '.join(str(a) for a in argv)}: exit {rc} in {seconds:.1f} s")
+    for line in (out.getvalue() + err.getvalue()).splitlines():
+        log(f"cli:   | {line}")
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        fail(f"cli {name}: {len(lines)} JSON lines on stdout")
+    summary = json.loads(lines[0])
+    if set(summary) != CLI_KEYS[name]:
+        fail(f"cli {name}: keys {sorted(summary)} are not the JAX script's "
+             f"{sorted(CLI_KEYS[name])}")
+    acct = re.findall(r"(\d+) loop iterations.*?, (\d+) kernel launches", err.getvalue())
+    if len(acct) != 1:
+        fail(f"cli {name}: no loop-iteration line on stderr")
+    n_loop, reported = map(int, acct[0])
+    if not launches == n_loop == reported or launches < 1:
+        fail(f"cli {name}: kernel launches {launches} (reported {reported}) != loop "
+             f"iterations {n_loop}")
+    return rc, summary, out.getvalue(), launches, seconds
+
+
+def phase_cli(tsqr, telemetry, mpcdata, engine, batch, stream_mod, cfg, scfg):
+    """The command-line entry points on the card, in this process."""
+    from boundmpc_tpu_torch.experiments import run_experiment, run_fleet, soak
+
+    t_phase = time.perf_counter()
+    runs = {}
+
+    tele = OUT / "cli_experiment1.bin"
+    rc, s, out, n, sec = _cli(tsqr, run_experiment, "run_experiment",
+                              ["--name", "experiment1", "--f32", "--ticks", 5, "--out",
+                               OUT / "cli_report", "--telemetry", tele])
+    runs["run_experiment"] = (n, sec)
+    rec = telemetry.read_log(tele, run_experiment.TELEMETRY_FIELDS)
+    if not (rc == 0 and s["all_success"] and s["ticks"] == 5 and s["max_viol"] < 1e-4):
+        fail(f"cli run_experiment: {s}")
+    if rec["t"].size != 5 or int(rec["iters"].sum()) != n:
+        fail(f"cli run_experiment: telemetry holds {rec['t'].size} records, iters "
+             f"{int(rec['iters'].sum())} != launches {n}")
+    if not any(ln.startswith("report: ") for ln in out.splitlines()):
+        fail("cli run_experiment: no report line")
+
+    def fleet_ok(name, s, mode, ticks):
+        if not (s["mode"] == mode and s["ticks"] == ticks and s["batch"] == CLI_B
+                and s["n_dead"] == 0 and s["success_rate"] >= 0.99):
+            fail(f"cli {name}: {s}")
+
+    rc, s, _, n, sec = _cli(tsqr, run_fleet, "run_fleet", ["--batch", CLI_B, "--ticks", 2])
+    runs["run_fleet stream"] = (n, sec)
+    fleet_ok("run_fleet stream", s, "stream", 10)  # run_stream rounds up to its chunk of 10
+
+    mpc_path, ckpt = OUT / "cli_mpcdata.bin", OUT / "cli_fleet.npz"
+    rc, s, _, n, sec = _cli(tsqr, run_fleet, "run_fleet",
+                            ["--batch", CLI_B, "--ticks", 2, "--executor", "tick", "--mpcdata",
+                             mpc_path, "--checkpoint", ckpt])
+    runs["run_fleet tick"] = (n, sec)
+    fleet_ok("run_fleet tick", s, "vmap", 2)
+    d = mpcdata.read_mpcdata(mpc_path, cfg)
+    if d["tick"].size != 2 * CLI_B or not ckpt.exists():
+        fail(f"cli run_fleet tick: MPCData holds {d['tick'].size} records, checkpoint "
+             f"{'written' if ckpt.exists() else 'missing'}")
+    phi_ckpt = s["mean_phi"]
+    rc, s, _, n, sec = _cli(tsqr, run_fleet, "run_fleet",
+                            ["--batch", CLI_B, "--ticks", 1, "--executor", "tick", "--resume",
+                             ckpt])
+    runs["run_fleet resume"] = (n, sec)
+    fleet_ok("run_fleet resume", s, "vmap", 1)
+    if not s["mean_phi"] > phi_ckpt:
+        fail(f"cli run_fleet resume: mean_phi {s['mean_phi']} <= {phi_ckpt} at the checkpoint")
+
+    rc, s, _, n, sec = _cli(tsqr, run_fleet, "run_fleet --sharded",
+                            ["--batch", CLI_B, "--ticks", 2, "--sharded"])
+    runs["run_fleet --sharded"] = (n, sec)
+    if not (s["mode"] == "sharded-stream" and s["devices"] == s["processes"] == 1
+            and s["n_dead"] == 0 and s["success_rate"] >= 0.99):
+        fail(f"cli run_fleet --sharded: {s}")
+
+    dump = OUT / "cli_state_t2.npz"
+    rc, s, _, n, sec = _cli(tsqr, soak, "soak",
+                            ["--B", CLI_B, "--ticks", 4, "--chunk", 2, "--dump-worst",
+                             OUT / "cli_worst.npz", "--dump-state-at", 2, "--dump-state", dump])
+    runs["soak"] = (n, sec)
+    if not (rc == 0 and s["passed"] is True and s["soak"]["B"] == CLI_B
+            and s["soak"]["ticks"] == 4):
+        fail(f"cli soak: exit {rc}, {s}")
+    # The tick-2 state, recomputed: the soak's fleet through one chunk.
+    states, paths, weights, x_phi_d = soak.build_batch(CLI_B, cfg, "cuda")
+    pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d)
+    at_2, _ = stream_mod.make_stream_ticks(cfg, scfg, 2)(states, paths, weights, x_phi_d, pref)
+    loaded = engine.load_state_dump(states, np.load(dump))
+    bad = _same_state(at_2, loaded) + [f for f in at_2._fields
+                                       if getattr(at_2, f).dtype != getattr(loaded, f).dtype]
+    verdict = f"differs in {bad}" if bad else "equals the recomputed tick-2 state bit for bit"
+    log(f"cli soak: the tick-2 dump read back by engine.load_state_dump {verdict}")
+    if bad:
+        fail(f"cli soak: the tick-2 dump differs in {bad}")
+
+    total = time.perf_counter() - t_phase
+    log("cli: " + ", ".join(f"{k} {n} launches in {sec:.1f} s" for k, (n, sec) in runs.items())
+        + f"; phase 13 took {total:.1f} s")
+    return sum(n for n, _ in runs.values())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -810,33 +1054,62 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from boundmpc_tpu_torch import engine
+    from boundmpc_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    OUT.mkdir(parents=True, exist_ok=True)
+    card = phase_facts(torch, engine)
+    phase_build(_build)
+    halves = start_cpu_halves()
+    try:
+        return _phases(torch, card, halves, t_start)
+    finally:
+        stop_cpu_halves(halves)
+
+
+def _phases(torch, card, halves, t_start) -> int:
+    """Phases 3-13 and the result lines."""
     from boundmpc_tpu_torch import (api, batch, distributed, engine, jerkint, kinematics, ocp,
                                     parity, solver, stream as stream_mod)
     from boundmpc_tpu_torch.observability import generate_report
     from boundmpc_tpu_torch.native import telemetry
-    from boundmpc_tpu_torch.ops import _build, tsqr, tsqr_bench
+    from boundmpc_tpu_torch.ops import tsqr, tsqr_bench
     from boundmpc_tpu_torch import runtime
     from boundmpc_tpu_torch.runtime import build_fleet, mpcdata
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    card = phase_facts(torch, engine)
-    phase_build(_build)
-    timed = phase_kernel(torch, tsqr, tsqr_bench)
+    with clocked("phase 3"):
+        timed = phase_kernel(torch, tsqr, tsqr_bench)
     cfg, scfg = ocp.OcpConfig(), solver.RUNTIME_F32
-    launches = phase_main_path(torch, runtime, scfg, tsqr, telemetry)
-    phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet)
-    launches_lockstep, fleet = phase_lockstep(torch, runtime, mpcdata, scfg, tsqr)
-    launches_single, log1, exp1 = phase_single(torch, runtime, api, scfg, tsqr, kinematics)
-    phase_jacobians(torch, fleet, engine, jerkint, kinematics, solver, tsqr_bench)
-    launches_sharded = phase_sharded(torch, distributed, batch, stream_mod, build_fleet, cfg,
-                                     scfg, tsqr, card)
-    # Lane 0 of the phase-6 fleet is experiment1.
-    phase_report(generate_report, mpcdata.report_from_telemetry,
-                 runtime.fleet_scenarios(1)[0], log1, exp1)
-    launches_qr_full, at_qr_full = phase_qr_full(torch, runtime, engine, solver, kinematics,
-                                                 tsqr, tsqr_bench, scfg)
-    phase_oracles(torch, runtime, engine, solver, kinematics, jerkint, parity)
+    with clocked("phase 4"):
+        launches = phase_main_path(torch, runtime, scfg, tsqr, telemetry)
+    with clocked("phase 5"):
+        phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet,
+                              cpu_half_result(halves, "small"))
+    with clocked("phase 6"):
+        launches_lockstep, fleet = phase_lockstep(torch, runtime, mpcdata, scfg, tsqr)
+    with clocked("phase 7"):
+        launches_single, log1, exp1 = phase_single(torch, runtime, api, scfg, tsqr, kinematics)
+    with clocked("phase 8"):
+        phase_jacobians(torch, fleet, engine, jerkint, kinematics, solver, tsqr_bench)
+    with clocked("phase 9"):
+        launches_sharded = phase_sharded(torch, distributed, batch, stream_mod, build_fleet,
+                                         cfg, scfg, tsqr, card)
+    with clocked("phase 10"):
+        # Lane 0 of the phase-6 fleet is experiment1.
+        phase_report(generate_report, mpcdata.report_from_telemetry,
+                     runtime.fleet_scenarios(1)[0], log1, exp1)
+    with clocked("phase 11"):
+        launches_qr_full, at_qr_full = phase_qr_full(torch, runtime, engine, solver, kinematics,
+                                                     tsqr, tsqr_bench, scfg,
+                                                     cpu_half_result(halves, "qr_full"))
+    with clocked("phase 12"):
+        phase_oracles(torch, runtime, engine, solver, kinematics, jerkint, parity,
+                      cpu_half_result(halves, "oracle"))
+    with clocked("phase 13"):
+        launches_cli = phase_cli(tsqr, telemetry, mpcdata, engine, batch, stream_mod, cfg, scfg)
 
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; {card}")
     b1 = timed[TIMED_SHAPES[2]]
     print(json.dumps({"kernels": [{
         "name": "tsqr_ls_solve", "route": "cuda",
@@ -844,7 +1117,7 @@ def main() -> int:
         "replaces": "boundmpc_tpu/ops/tsqr.py:37",
         "launches": launches, "launches_lockstep": launches_lockstep,
         "launches_single": launches_single, "launches_sharded": launches_sharded,
-        "launches_qr_full": launches_qr_full,
+        "launches_qr_full": launches_qr_full, "launches_cli": launches_cli,
         **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
                      "library_ms": timed[TIMED_SHAPES[1]]["library_ms"],

@@ -3,9 +3,9 @@ the JAX package's, in float64 on the CPU.
 
 The port runs as torch.distributed ranks over gloo, one subprocess each
 (the port only, one thread each); the JAX package's ``ShardedEngine`` runs
-on two of the conftest's virtual CPU devices meanwhile.  Both get the same
-B = 4 fleet (built by the JAX package, carried across as numpy), one
-``tick`` and a 3-tick ``stream``.  In float64 both take the same iteration
+meanwhile on two of eight virtual CPU devices, in a subprocess of its own.
+Both get the same B = 4 fleet (built by the JAX package, carried across as
+numpy), one ``tick`` and a 3-tick ``stream``.  In float64 both take the same iteration
 paths (see test_torch_stream.py), so the states agree to 1e-8, the integer
 metrics and loop counts are equal, and the float metrics agree to 1e-10
 relative.  A group of one is held to the port's unsharded executors bit
@@ -17,12 +17,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from boundmpc_tpu import distributed as jdist, solver as jsol
+from boundmpc_tpu import engine as jeng, solver as jsol, stream as jstream
 from boundmpc_tpu.runtime import scenarios as jscen
 from boundmpc_tpu.runtime.fleet import FleetRunner
 from boundmpc_tpu_torch import distributed, ocp as tocp, solver as tsol
@@ -30,7 +29,46 @@ from boundmpc_tpu_torch import distributed, ocp as tocp, solver as tsol
 ROOT = Path(__file__).resolve().parents[1]
 B, K = 4, 3
 WORKER_TIMEOUT = 240
+JAX_TIMEOUT = 1800  # hang protection: the fixture took 676 s in a loaded test run
 TREES = ("EngineState", "PathData", "QrPrefactor")
+# The sharded JAX engine reduces its metrics across the two devices after
+# each device's own solve loop, and the loops differ in length by design.
+# On an oversubscribed CPU (test workers, rank processes) the gap between
+# the devices' arrivals at that all-reduce can pass XLA's 40 s rendezvous
+# termination timeout, which aborts the process; so the engine runs in a
+# process of its own, with the timeout raised.
+JAX_XLA_FLAGS = "--xla_cpu_collective_call_terminate_timeout_seconds=600"
+
+# The JAX package's ShardedEngine on the fleet from ``inputs``: the tick and
+# the stream's states, the stream's series and both metrics, as numpy.
+JAX_ENGINE = r"""
+import sys
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+from boundmpc_tpu import distributed as jdist, engine, ocp, path, solver
+
+inputs, out = sys.argv[1:3]
+d = np.load(inputs)
+def tree(cls):
+    return cls(**{f: jnp.asarray(d[cls.__name__ + "." + f]) for f in cls._fields})
+cfg = ocp.OcpConfig(N=int(d["N"]), nr_segs=int(d["nr_segs"]), dt=float(d["dt"]))
+eng = jdist.ShardedEngine(cfg, solver.RUNTIME_F32, jdist.scenario_mesh(jax.devices()[:2]),
+                          dtype=jnp.float64)
+def fleet():  # fresh device copies: each call donates its states
+    return tuple(eng.sharding(t) for t in (tree(engine.EngineState), tree(path.PathData),
+                                           jnp.asarray(d["weights"]), jnp.asarray(d["x_phi_d"])))
+res = {}
+st, _, m = eng.tick(*fleet())
+res.update({"tick.state." + k: np.asarray(v) for k, v in st._asdict().items()})
+res.update({"tick.metric." + k: np.asarray(v) for k, v in m.items()})
+st, so, m = eng.stream(*fleet(), eng.sharding(tree(solver.QrPrefactor)), n_ticks=int(d["K"]))
+res.update({"stream.state." + k: np.asarray(v) for k, v in st._asdict().items()})
+res.update({"stream.out." + k: np.asarray(v) for k, v in so._asdict().items()})
+res.update({"stream.metric." + k: np.asarray(v) for k, v in m.items()})
+np.savez(out, **res)
+"""
 
 # One rank: the fleet from ``inputs``, this rank's shard, tick and stream;
 # with ``plain`` also the unsharded executors on the whole fleet.
@@ -109,15 +147,35 @@ def _start(tmp, name, mode, env):
     return proc, out
 
 
-def _finish(proc, out):
+def _wait(proc, timeout):
+    """(exit code, stdout, stderr) of a subprocess, killed at ``timeout``."""
     try:
-        stdout, stderr = proc.communicate(timeout=WORKER_TIMEOUT)
+        stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
-        proc.communicate()
-        raise
-    assert proc.returncode == 0, stderr[-4000:]
+        stdout, stderr = proc.communicate()
+        return None, stdout, stderr
+    return proc.returncode, stdout, stderr
+
+
+def _finish(proc, out):
+    rc, stdout, stderr = _wait(proc, WORKER_TIMEOUT)
+    assert rc == 0, stderr[-4000:]
     return json.loads(stdout.strip().splitlines()[-1]), dict(np.load(out))
+
+
+def _jax_results(d):
+    """(tick, stream) of the JAX engine's npz: each (EngineState, StreamOut
+    or None, metrics) of numpy leaves."""
+    def state(what):
+        return jeng.EngineState(**{f: d[f"{what}.state.{f}"] for f in jeng.EngineState._fields})
+
+    def metrics(what):
+        pre = f"{what}.metric."
+        return {k[len(pre):]: v for k, v in d.items() if k.startswith(pre)}
+
+    so = jstream.StreamOut(**{f: d[f"stream.out.{f}"] for f in jstream.StreamOut._fields})
+    return (state("tick"), None, metrics("tick")), (state("stream"), so, metrics("stream"))
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +190,7 @@ def runs(tmp_path_factory):
     arrays = {f"{name}.{k}": v for name, t in zip(TREES, (f.states, f.paths, f._pref))
               for k, v in _asdict(t).items()}
     np.savez(tmp / "inputs.npz", weights=np.asarray(f.weights), x_phi_d=np.asarray(f.x_phi_d),
-             K=K, **arrays)
+             K=K, N=f.cfg.N, nr_segs=f.cfg.nr_segs, dt=f.cfg.dt, **arrays)
 
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
                WORLD_SIZE="2", OMP_NUM_THREADS="1")
@@ -141,16 +199,16 @@ def runs(tmp_path_factory):
     env1 = {k: v for k, v in env.items() if k not in ("MASTER_ADDR", "MASTER_PORT",
                                                        "WORLD_SIZE")}
     procs.append(_start(tmp, "single", f"127.0.0.1:{distributed.free_port()}", env1))
+    jax_env = dict(os.environ, XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} {JAX_XLA_FLAGS}")
+    jax_proc = subprocess.Popen([sys.executable, "-c", JAX_ENGINE, str(tmp / "inputs.npz"),
+                                 str(tmp / "jax.npz")], cwd=str(ROOT), env=jax_env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        eng = jdist.ShardedEngine(f.cfg, f.scfg, jdist.scenario_mesh(jax.devices()[:2]),
-                                  dtype=jnp.float64)
-        sh = eng.sharding
-        tick = eng.tick(sh(f.states), sh(f.paths), sh(f.weights), sh(f.x_phi_d))
-        stream = eng.stream(sh(f.states), sh(f.paths), sh(f.weights), sh(f.x_phi_d),
-                            sh(f._pref), n_ticks=K)
-        tick, stream = (jax.tree.map(np.asarray, r) for r in (tick, stream))
-    finally:
         ranks = [_finish(*p) for p in procs]
+    finally:
+        rc, _, stderr = _wait(jax_proc, JAX_TIMEOUT)
+    assert rc == 0, stderr[-4000:]
+    tick, stream = _jax_results(dict(np.load(tmp / "jax.npz")))
     return tick, stream, ranks[:2], ranks[2]
 
 

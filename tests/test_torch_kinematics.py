@@ -102,6 +102,18 @@ def test_kinematics_matches_jax(name):
         _close(out_j, out_t)
 
 
+
+@pytest.mark.parametrize("name", ["fk_pose_b", "fk_pos_b", "jacobian_b", "djacobian_b"])
+def test_batched_aliases_match_jax(name):
+    """The vmap aliases, B = 5, called as they are (no vmap in the test)."""
+    rng = np.random.default_rng(13)
+    q = rng.uniform(-2.5, 2.5, size=(5, 7))
+    dq = rng.normal(size=(5, 7))
+    args = (q, dq) if name == "djacobian_b" else (q,)
+    out_t = getattr(tkin, name)(*(_t(a) for a in args))
+    assert out_t.shape[0] == 5
+    _close(getattr(jkin, name)(*(jnp.asarray(a) for a in args)), out_t)
+
 def test_robot_limits_match_jax():
     lj = jkin.robot_limits()
     lt = tkin.robot_limits(dtype=torch.float64)

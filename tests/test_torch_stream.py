@@ -142,7 +142,8 @@ def test_port_imports_no_jax():
             "for want in ('api', 'runtime.fleet', 'runtime.runner', 'runtime.mpcdata',\n"
             "             'native.telemetry', 'observability.horizon', 'jacobian',\n"
             "             'distributed', 'observability.report', 'parity.oracle',\n"
-            "             'parity.ref_nlp'):\n"
+            "             'parity.ref_nlp', 'experiments.run_experiment',\n"
+            "             'experiments.run_fleet', 'experiments.soak'):\n"
             "    assert p.__name__ + '.' + want in names, want\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
@@ -153,6 +154,7 @@ def test_port_imports_no_jax():
             "from boundmpc_tpu_torch.runtime.mpcdata import report_from_telemetry\n"
             "from boundmpc_tpu_torch.parity import (OracleSolver, RefNlpSolver, oracle_runner,\n"
             "                                       ref_nlp_runner)\n"
+            "from boundmpc_tpu_torch.experiments import run_experiment, run_fleet, soak\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
             "             or k == 'boundmpc_tpu' or k.startswith('boundmpc_tpu.'))\n"
             "assert not bad, bad\n"
