@@ -9,8 +9,9 @@ Phases (any failure exits nonzero and prints no result line):
   2. build (or load) the native libraries from the checkout, in parallel:
      the hand-written CUDA kernel (nvcc) and the telemetry sink (g++);
   3. the kernel against its plain PyTorch version on the card, float32, at
-     six shapes (TSQR_SHAPES: the main path's (256, 550, 80) and others that
-     take several chunks, ragged rows, the widest n, one scenario): random
+     seven shapes (TSQR_SHAPES: the main path's (256, 550, 80) and others
+     that take several chunks, ragged rows, the widest n, one scenario,
+     phase 13's fleets of CLI_B): random
      rows (2e-4 abs/rel) and ill-conditioned weighted rows (5e-3 relative to
      a float64 lstsq); and at TIMED_SHAPES the kernel, the plain version and
      one library call (torch.linalg.lstsq) timed in turns, beside the
@@ -59,8 +60,7 @@ Phases (any failure exits nonzero and prints no result line):
      and the kernel, the plain version and ``torch.linalg.lstsq`` timed on
      the ``qr_full`` solve's first stack;
  12. the parity oracles in float64 on the card: ``OracleSolver`` at
-     experiment1 from rest against the same solve on the CPU, run in a
-     subprocess beside it (ORACLE_OBJ_TOL,
+     experiment1 from rest against the same solve on the CPU (ORACLE_OBJ_TOL,
      ORACLE_U_TOL) and within 1e-3 of the port's float64 CPU Gauss-Newton
      objective (tests/test_parity.py), then ``RefNlpSolver`` warm-started
      from that GN optimum under tests/test_ref_nlp_parity.py's gates at
@@ -76,13 +76,10 @@ Phases (any failure exits nonzero and prints no result line):
      the JAX script's key set and on kernel launches == the GN loop
      iterations the CLI reports, the soak on its gate and on its dump being
      the tick-2 state bit for bit.
-The CPU references of phases 5, 11 and 12 (``cpu_half``) run beside the card
-phases, each in a process of its own started after phase 2, and each phase
-waits for its own.  Then one JSON line describing the kernels, and last the
-device JSON line.
+Each phase logs its seconds.  Then one JSON line describing the kernels,
+and last the device JSON line.
 """
 import contextlib
-import faulthandler
 import importlib.util
 import io
 import json
@@ -100,10 +97,12 @@ import numpy as np
 B_MAIN = 256
 K_MAIN = 6  # stream ticks, one executor call; keeps the script under 10 minutes
 B_SMALL, K_SMALL = 4, 4
+CLI_B = 8  # phase 13's fleets
 # Phase 3: the main path's shape, a larger batch, several chunks, ragged rows
-# with a small n, the widest n the kernel takes, one scenario.
+# with a small n, the widest n the kernel takes, one scenario, phase 13's
+# fleets.
 TSQR_SHAPES = ((256, 550, 80), (1024, 550, 80), (7, 1100, 80), (5, 173, 10),
-               (3, 700, 127), (1, 550, 80))
+               (3, 700, 127), (1, 550, 80), (CLI_B, 550, 80))
 TIMED_SHAPES = ((256, 550, 80), (1024, 550, 80), (1, 550, 80))
 TIMING_REPS = 20
 PLAIN_REPS = 3  # the plain version and the library call are 400-4000x slower
@@ -145,27 +144,14 @@ CLI_KEYS = {
     "soak": {"soak", "success_rate", "max_viol", "n_dead", "solves_per_s", "mean_iters",
              "p99_iters", "mean_phi_final", "worst_lanes", "failure_census", "passed"},
 }
-CLI_B = 8
-# The CPU references of phases 5, 11 and 12 run beside the card phases, one
-# process each (cpu_half), with few threads: the card phases are host-bound.
-CPU_HALVES = ("small", "qr_full", "oracle")
-CPU_HALF_THREADS = 2
-CPU_HALF_TIMEOUT = 900
-PLANT = ("q", "dq", "phi", "dphi", "pr_ref", "iw_ref", "sector")
-# A phase still running after this many seconds prints every thread's stack
-# (and again after as many more); the longest phase takes about 150 s.
-WATCHDOG_S = 300
-SOLVE_STATS = ("iters", "viol", "converged", "obj", "n_loop")
 OUT = Path(__file__).resolve().parent / "build" / "boundmpc_tpu_torch" / "smoke"
 
 
 @contextlib.contextmanager
 def clocked(name: str):
-    """Log a phase's seconds; arm the watchdog for it."""
-    faulthandler.dump_traceback_later(WATCHDOG_S, repeat=True)
+    """Log a phase's seconds."""
     t0 = time.perf_counter()
     yield
-    faulthandler.cancel_dump_traceback_later()
     log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
 
@@ -240,7 +226,7 @@ def check_shape(torch, tsqr, shape, seed):
         f"kernel {rel['kernel']:.3e} plain {rel['plain']:.3e}")
     if not rel["kernel"] < 5e-3:
         fail(f"{shape}: kernel weighted-row relative error {rel['kernel']:.3e} >= 5e-3")
-    return A, b
+    return A, b, max_abs
 
 
 def _time_kernel(torch, tsqr, bench, A, b):
@@ -262,9 +248,9 @@ def _time_kernel(torch, tsqr, bench, A, b):
 
 
 def phase_kernel(torch, tsqr, bench):
-    timed = {}
+    timed, errs = {}, {}
     for i, shape in enumerate(TSQR_SHAPES):
-        A, b = check_shape(torch, tsqr, shape, i)
+        A, b, errs[shape] = check_shape(torch, tsqr, shape, i)
         if shape not in TIMED_SHAPES:
             continue
         ms, t = _time_kernel(torch, tsqr, bench, A, b)
@@ -281,7 +267,7 @@ def phase_kernel(torch, tsqr, bench):
         pass
     else:
         fail("ls_solve accepted a float64 CUDA tensor")
-    return timed
+    return timed, errs
 
 
 def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
@@ -340,22 +326,18 @@ def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
     return launches
 
 
-def _small_run(cfg, scfg, stream_mod, batch, build_fleet, device, dtype):
-    """Phase 5's run: the small fleet through the stream executor."""
-    states, paths, weights, x_phi_d = build_fleet(B_SMALL, cfg, device, dtype)
-    pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=dtype)
-    fn = stream_mod.make_stream_ticks(cfg, scfg, K_SMALL, dtype=dtype, device=device)
-    return fn(states, paths, weights, x_phi_d, pref)
-
-
-def phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet, cpu):
-    """The small fleet on the card in float32 against ``cpu``, the same run
-    in float64 on the CPU (``cpu_half("small")``)."""
-    st_g, so_g = _small_run(cfg, scfg, stream_mod, batch, build_fleet, "cuda", torch.float32)
-    succ_g, succ_c = so_g.success.cpu().numpy(), cpu["success"]
-    worst = max(float(np.abs(getattr(st_g, f).double().cpu().numpy()
-                             - cpu[f].astype(np.float64)).max()) for f in PLANT)
-    vmax = max(float(so_g.viol.max()), float(cpu["viol"].max()))
+def phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet):
+    outs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        states, paths, weights, x_phi_d = build_fleet(B_SMALL, cfg, device, dtype)
+        pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=dtype)
+        fn = stream_mod.make_stream_ticks(cfg, scfg, K_SMALL, dtype=dtype, device=device)
+        outs[device] = fn(states, paths, weights, x_phi_d, pref)
+    (st_g, so_g), (st_c, so_c) = outs["cuda"], outs["cpu"]
+    succ_g, succ_c = so_g.success.cpu().numpy(), so_c.success.numpy()
+    worst = max(float((getattr(st_g, f).double().cpu() - getattr(st_c, f).double()).abs().max())
+                for f in ("q", "dq", "phi", "dphi", "pr_ref", "iw_ref", "sector"))
+    vmax = max(float(so_g.viol.max()), float(so_c.viol.max()))
     log(f"reference check B={B_SMALL} K={K_SMALL}: cuda f32 vs cpu f64 success "
         f"{int(succ_g.sum())}/{int(succ_c.sum())}, max viol {vmax:.2e}, max plant-state "
         f"diff {worst:.2e}")
@@ -730,25 +712,25 @@ def _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, device, dt
     return stacks, du, rel, solves
 
 
-def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg, cpu):
+def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg):
     """The unreduced stack at experiment1 from rest, B = 1, float32, beside
-    ``cpu``: the same step on the CPU (the plain version) in float32 and
-    float64 and the same solves in float32 (``cpu_half("qr_full")``)."""
+    the same step on the CPU (the plain version) in float32 and float64 and
+    the same solves in float32."""
+    cpu = {dt: _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, "cpu", dt,
+                                solve=dt == torch.float32)
+           for dt in (torch.float32, torch.float64)}
     stacks, du, rel, solves = _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg,
                                                "cuda", torch.float32)
     shapes = {m: tuple(A.shape) for m, (A, _) in stacks.items()}
     rc = tsqr.chunk_rows(*shapes["qr_full"][1:])
     log(f"qr_full: stacks {shapes}, {-(-shapes['qr_full'][1] // rc)} chunks of {rc} rows; "
         f"first GN step du qr vs qr_full {rel:.3e} relative (gate {DU_TOL:g}; the CPU's plain "
-        f"version: float32 {float(cpu['rel_f32']):.3e}, float64 {float(cpu['rel_f64']):.3e}), "
+        f"version: float32 {cpu[torch.float32][2]:.3e}, float64 {cpu[torch.float64][2]:.3e}), "
         f"|du| max {float(du['qr_full'].abs().max()):.4f}")
     if not (rel <= DU_TOL and bool(torch.isfinite(du["qr_full"]).all())):
         fail(f"qr_full: du differs from the reduced stack's by {rel:.3e} > {DU_TOL}")
 
-    cpu_solves = {m: (None, SimpleNamespace(**{f: cpu[f"{m}.{f}"] for f in SOLVE_STATS}),
-                      int(cpu[f"{m}.launches"]), float(cpu[f"{m}.wall"]))
-                  for m in ("qr_full", "qr")}
-    for where, res in (("card", solves), ("CPU float32", cpu_solves)):
+    for where, res in (("card", solves), ("CPU float32", cpu[torch.float32][3])):
         for method, (u, st, launches, wall) in res.items():
             viol, conv = float(st.viol[0]), bool(st.converged[0])
             ok = viol < 1e-4 or (conv and viol < 1e-3)
@@ -772,121 +754,45 @@ def phase_qr_full(torch, runtime, engine, solver, kin, tsqr, bench, scfg, cpu):
     return launches, timed
 
 
-def _gn(torch, runtime, engine, solver, kin, scenario):
-    """The port's float64 CPU GN solve at rest under SolverConfig(): the
-    runner, the tick's params, the plan and its stats."""
+def phase_oracles(torch, runtime, engine, solver, kin, jerkint, parity):
+    """The parity oracles in float64 on the card."""
     from torch.func import vmap
 
-    r = runtime.ClosedLoopRunner(scenario, device="cpu")
-    params = vmap(lambda s, p, w, x: engine.assemble_params(r.cfg, s, p, w, x))(
-        r.state, r.path, r.weights, r.x_phi_d)
-    lim = kin.robot_limits(dtype=torch.float64, device="cpu")
-    u, st = solver.solve(r.cfg, r.scfg, r.coeffs, params, r.state.u_warm, lim)
-    return r, params, u, st
-
-
-def cpu_half(name: str, path: str) -> None:
-    """The CPU reference of phase 5 ("small"), 11 ("qr_full") or 12
-    ("oracle"), run in a process of its own beside the card phases
-    (``start_cpu_halves``); its results to ``path`` (npz)."""
-    import torch
-    torch.set_num_threads(CPU_HALF_THREADS)
-    from boundmpc_tpu_torch import (batch, engine, kinematics, ocp, parity, runtime, solver,
-                                    stream as stream_mod)
-    from boundmpc_tpu_torch.ops import tsqr
-
-    scfg = solver.RUNTIME_F32
-    if name == "small":
-        st, so = _small_run(ocp.OcpConfig(), scfg, stream_mod, batch, runtime.build_fleet, "cpu",
-                            torch.float64)
-        out = {f: getattr(st, f).numpy() for f in PLANT}
-        out.update(success=so.success.numpy(), viol=so.viol.numpy())
-    elif name == "qr_full":
-        out = {}
-        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-            _, _, rel, solves = _step_and_solves(torch, runtime, engine, solver, kinematics, tsqr,
-                                                 scfg, "cpu", dt, solve=dt == torch.float32)
-            out[f"rel_{tag}"] = rel
-            for m, (_, st, launches, wall) in solves.items():
-                out.update({f"{m}.{f}": getattr(st, f).numpy() for f in SOLVE_STATS})
-                out.update({f"{m}.launches": launches, f"{m}.wall": wall})
-    elif name == "oracle":
-        r, params, _, _ = _gn(torch, runtime, engine, solver, kinematics, runtime.experiment1())
-        t0 = time.perf_counter()
-        orc = parity.OracleSolver(r.cfg, r.coeffs,
-                                  kinematics.robot_limits(dtype=torch.float64, device="cpu"))
-        u, st = orc(params, r.state.u_warm)
-        out = {f: getattr(st, f).numpy() for f in ("obj", "iters", "converged", "viol")}
-        out.update(u=u.numpy(), seconds=time.perf_counter() - t0)
-    else:
-        raise ValueError(f"no CPU half named {name}")
-    np.savez(path, **out)
-
-
-def start_cpu_halves():
-    """Start the CPU halves of phases 5, 11 and 12, one process each:
-    {name: (process, npz path)}."""
-    root = Path(__file__).resolve().parent
-    halves = {}
-    for name in CPU_HALVES:
-        path = OUT / f"cpu_half_{name}.npz"
-        proc = subprocess.Popen([sys.executable, "-c",
-                                 "import sys, chip_smoke; chip_smoke.cpu_half(*sys.argv[1:])",
-                                 name, str(path)], cwd=str(root))
-        halves[name] = (proc, path)
-    return halves
-
-
-def cpu_half_result(halves, name):
-    """Wait for one CPU half (logging how long) and load its npz."""
-    proc, path = halves[name]
-    t0 = time.perf_counter()
-    rc = proc.wait(timeout=CPU_HALF_TIMEOUT)
-    waited = time.perf_counter() - t0
-    if rc != 0:
-        fail(f"the CPU half {name} exited {rc}")
-    log(f"CPU half {name}: waited {waited:.1f} s for it")
-    return np.load(path)
-
-
-def stop_cpu_halves(halves):
-    for proc, _ in halves.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-
-
-def phase_oracles(torch, runtime, engine, solver, kin, jerkint, parity, cpu):
-    """The parity oracles in float64 on the card, against ``cpu``, the
-    oracle's CPU solve (``cpu_half("oracle")``)."""
     f64 = torch.float64
+    lim_c = kin.robot_limits(dtype=f64, device="cpu")
     lim_g = kin.robot_limits(dtype=f64, device="cuda")
 
     def to_card(tree):
         return type(tree)(*(t.cuda() for t in tree))
 
     def gn(scenario):
-        return _gn(torch, runtime, engine, solver, kin, scenario)
+        """The port's float64 CPU GN solve at rest under SolverConfig()."""
+        r = runtime.ClosedLoopRunner(scenario, device="cpu")
+        params = vmap(lambda s, p, w, x: engine.assemble_params(r.cfg, s, p, w, x))(
+            r.state, r.path, r.weights, r.x_phi_d)
+        u, st = solver.solve(r.cfg, r.scfg, r.coeffs, params, r.state.u_warm, lim_c)
+        return r, params, u, st
 
     r, params_c, u_gn, s_gn = gn(runtime.experiment1())
     cfg = r.cfg
     co_g = jerkint.coeff_matrices(cfg.N, cfg.dt, dtype=f64, device="cuda")
     params_g = to_card(params_c)
-    t0 = time.perf_counter()
-    u_g, s_g = parity.OracleSolver(cfg, co_g, lim_g)(params_g, r.state.u_warm.cuda())
-    torch.cuda.synchronize()
-    t_g = time.perf_counter() - t0
-    u_c, t_c = torch.as_tensor(cpu["u"]), float(cpu["seconds"])
-    s_c = SimpleNamespace(**{f: torch.as_tensor(cpu[f]) for f in ("obj", "iters", "converged",
-                                                                  "viol")})
+    out = {}
+    for dev, co, lim, p in (("cuda", co_g, lim_g, params_g), ("cpu", r.coeffs, lim_c, params_c)):
+        t0 = time.perf_counter()
+        orc = parity.OracleSolver(cfg, co, lim)
+        out[dev] = orc(p, r.state.u_warm.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] += (time.perf_counter() - t0,)
+    (u_g, s_g, t_g), (u_c, s_c, t_c) = out["cuda"], out["cpu"]
     obj_g, obj_c, obj_gn = float(s_g.obj[0]), float(s_c.obj[0]), float(s_gn.obj[0])
     d_obj = abs(obj_g - obj_c) / abs(obj_c)
     d_u = float((u_g.cpu() - u_c).abs().max())
     gap = abs(obj_gn - obj_g) / abs(obj_g)
     log(f"oracle: SLSQP at experiment1 from rest, card {int(s_g.iters[0])} iterations "
         f"{t_g:.1f} s ({1e3 * t_g / max(int(s_g.iters[0]), 1):.0f} ms per iteration), CPU "
-        f"{int(s_c.iters[0])} iterations {t_c:.1f} s (its own process); card vs CPU objective "
-        f"{d_obj:.3e} "
+        f"{int(s_c.iters[0])} iterations {t_c:.1f} s; card vs CPU objective {d_obj:.3e} "
         f"relative, plan {d_u:.3e} max abs; converged {bool(s_g.converged[0])}, viol "
         f"{float(s_g.viol[0]):.3e}; objective gap to the CPU GN solve {gap:.3e} "
         f"(GN {int(s_gn.iters[0])} iterations, viol {float(s_gn.viol[0]):.3e})")
@@ -1061,14 +967,10 @@ def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     card = phase_facts(torch, engine)
     phase_build(_build)
-    halves = start_cpu_halves()
-    try:
-        return _phases(torch, card, halves, t_start)
-    finally:
-        stop_cpu_halves(halves)
+    return _phases(torch, card, t_start)
 
 
-def _phases(torch, card, halves, t_start) -> int:
+def _phases(torch, card, t_start) -> int:
     """Phases 3-13 and the result lines."""
     from boundmpc_tpu_torch import (api, batch, distributed, engine, jerkint, kinematics, ocp,
                                     parity, solver, stream as stream_mod)
@@ -1079,13 +981,12 @@ def _phases(torch, card, halves, t_start) -> int:
     from boundmpc_tpu_torch.runtime import build_fleet, mpcdata
 
     with clocked("phase 3"):
-        timed = phase_kernel(torch, tsqr, tsqr_bench)
+        timed, errs = phase_kernel(torch, tsqr, tsqr_bench)
     cfg, scfg = ocp.OcpConfig(), solver.RUNTIME_F32
     with clocked("phase 4"):
         launches = phase_main_path(torch, runtime, scfg, tsqr, telemetry)
     with clocked("phase 5"):
-        phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet,
-                              cpu_half_result(halves, "small"))
+        phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet)
     with clocked("phase 6"):
         launches_lockstep, fleet = phase_lockstep(torch, runtime, mpcdata, scfg, tsqr)
     with clocked("phase 7"):
@@ -1101,11 +1002,9 @@ def _phases(torch, card, halves, t_start) -> int:
                      runtime.fleet_scenarios(1)[0], log1, exp1)
     with clocked("phase 11"):
         launches_qr_full, at_qr_full = phase_qr_full(torch, runtime, engine, solver, kinematics,
-                                                     tsqr, tsqr_bench, scfg,
-                                                     cpu_half_result(halves, "qr_full"))
+                                                     tsqr, tsqr_bench, scfg)
     with clocked("phase 12"):
-        phase_oracles(torch, runtime, engine, solver, kinematics, jerkint, parity,
-                      cpu_half_result(halves, "oracle"))
+        phase_oracles(torch, runtime, engine, solver, kinematics, jerkint, parity)
     with clocked("phase 13"):
         launches_cli = phase_cli(tsqr, telemetry, mpcdata, engine, batch, stream_mod, cfg, scfg)
 
@@ -1118,6 +1017,7 @@ def _phases(torch, card, halves, t_start) -> int:
         "launches": launches, "launches_lockstep": launches_lockstep,
         "launches_single": launches_single, "launches_sharded": launches_sharded,
         "launches_qr_full": launches_qr_full, "launches_cli": launches_cli,
+        "at_cli": {"shape": [CLI_B, 550, 80], "max_abs_err": errs[(CLI_B, 550, 80)]},
         **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
                      "library_ms": timed[TIMED_SHAPES[1]]["library_ms"],

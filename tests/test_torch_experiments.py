@@ -35,6 +35,10 @@ ROOT = Path(__file__).resolve().parents[1]
 # 10 while several test workers compiled JAX programs beside it.
 SCRIPT_TIMEOUT = 1800
 F32_TOL = 2e-2  # plant progress, float32 against float32 (test_torch_stream_f32.py)
+# Under SolverConfig() the JAX package differs from itself by 4 GN iterations
+# over 3 ticks of experiment1 when only its Jacobian's evaluation order
+# changes (structured against AD, test_torch_runner.py).
+ITERS_SPREAD = 4
 
 # Runs a JAX script with its compilation cache in a given directory.
 LAUNCH = ("import runpy, sys\n"
@@ -46,11 +50,11 @@ LAUNCH = ("import runpy, sys\n"
           "runpy.run_path(script, run_name='__main__')\n")
 
 
-def _start_jax(script, args, tmp):
+def _start_jax(script, args, tmp, env=None):
     cmd = [sys.executable, str(ROOT / "experiments" / script), *map(str, args)]
     if script != "run_experiment.py":
         cmd[1:2] = ["-c", LAUNCH, str(tmp / "xla_cache"), cmd[1]]
-    return subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
@@ -92,11 +96,13 @@ def _args(module, argv):
 def test_run_experiment_matches_jax_script(tmp_path, capsys):
     """experiment1, 4 ticks, float64 SolverConfig() on both sides: the
     summary to 1e-8 and the telemetry logs column for column (the records
-    are float32), apart from the compute time and the iterations after the
-    first tick.  SolverConfig()'s step-size exit (1e-8) sits at float64
-    rounding noise, so later solves take a few iterations more or less in
-    either package (test_torch_api.py, test_torch_runner.py) and land on
-    the same plan to far below the float32 records' resolution."""
+    are float32), apart from the compute time; the iterations equal on the
+    first tick and within ITERS_SPREAD after it.  SolverConfig()'s
+    step-size exit (1e-8) sits at float64 rounding noise, so later solves
+    take a few iterations more or less in either package (test_torch_api.py,
+    test_torch_runner.py) and land on the same plan to far below the
+    float32 records' resolution.  Under a preset whose exits sit above the
+    noise, test_torch_runner.py holds the iterations equal tick by tick."""
     proc = _start_jax("run_experiment.py",
                       ["--cpu", "--ticks", 4, "--telemetry", tmp_path / "jax.bin"], tmp_path)
     port = run_experiment.run(
@@ -126,7 +132,10 @@ def test_run_experiment_matches_jax_script(tmp_path, capsys):
     for f in fields:
         if f not in ("t_comp", "iters"):
             np.testing.assert_allclose(ours[f], theirs[f], rtol=1e-6, atol=1e-8, err_msg=f)
-    assert ours["iters"][0] == theirs["iters"][0]
+    np.testing.assert_array_equal(ours["success"], theirs["success"])
+    d_iters = ours["iters"].astype(np.int64) - theirs["iters"].astype(np.int64)
+    assert d_iters[0] == 0
+    assert np.abs(d_iters).max() <= ITERS_SPREAD and abs(d_iters.sum()) <= ITERS_SPREAD, d_iters
     assert (ours["iters"] >= 1).all() and (ours["t_comp"] > 0).all()
 
 
@@ -329,9 +338,24 @@ import sys
 import torch
 torch.set_num_threads(1)
 from boundmpc_tpu_torch.experiments import run_fleet
-args = run_fleet.parser().parse_args(sys.argv[1:])
-run_fleet.run(args, device="cpu", dtype=torch.float64)
+args = run_fleet.parser().parse_args(sys.argv[2:])
+run_fleet.run(args, device="cpu", dtype=getattr(torch, sys.argv[1]))
 """
+# The JAX script's --sharded on the CPU: its eight virtual devices, and
+# XLA's collective termination timeout raised from 40 s (see
+# test_torch_distributed.py: a loaded machine can pass it and abort).
+JAX_SHARDED_XLA_FLAGS = ("--xla_force_host_platform_device_count=8 "
+                         "--xla_cpu_collective_call_terminate_timeout_seconds=600")
+
+
+def _start_ranks(argv, dtype):
+    """--sharded as two gloo ranks from torchrun's environment."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
+               WORLD_SIZE="2", OMP_NUM_THREADS="1")
+    return [subprocess.Popen([sys.executable, "-c", SHARDED_RANK, dtype, *map(str, argv)],
+                             cwd=str(ROOT), env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
 
 
 def test_run_fleet_sharded_two_ranks_match_unsharded(tmp_path):
@@ -339,12 +363,7 @@ def test_run_fleet_sharded_two_ranks_match_unsharded(tmp_path):
     ranks print the same group metrics, and success, n_dead and max_viol are
     the unsharded port run's over the same two ticks."""
     argv = ["--cpu", "--sharded", "--batch", 4, "--ticks", 2]
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
-               WORLD_SIZE="2", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", SHARDED_RANK, *map(str, argv)],
-                              cwd=str(ROOT), env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(2)]
+    procs = _start_ranks(argv, "float64")
     try:
         fleet = FleetRunner(run_fleet.scenarios_for(_args(run_fleet, argv)),
                             dtype=torch.float64, device="cpu")
@@ -363,6 +382,36 @@ def test_run_fleet_sharded_two_ranks_match_unsharded(tmp_path):
     for k in ("max_viol", "mean_phi"):
         np.testing.assert_allclose(lines[0][k], getattr(stats, k), rtol=1e-10, atol=0,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("executor,ticks", [("stream", 12), ("tick", 2)])
+def test_run_fleet_sharded_matches_jax_script(tmp_path, executor, ticks):
+    """--sharded in float32: the JAX script on its eight virtual CPU devices
+    against the port's CLI as two gloo ranks, B = 8.  The stream's 12 ticks
+    take the chunk plan of 10 plus a remainder chunk of 2; the tick
+    executor's success is the last tick's over the batch.  Key set, mode,
+    batch, ticks, success and dead lanes equal; each side's devices and
+    processes its own; violation and progress behaviourally."""
+    argv = ["--cpu", "--sharded", "--batch", 8, "--ticks", ticks, "--executor", executor]
+    proc = _start_jax("run_fleet.py", argv, tmp_path,
+                      env=dict(os.environ, XLA_FLAGS=JAX_SHARDED_XLA_FLAGS))
+    procs = _start_ranks(argv, "float32")
+    try:
+        lines = [_finish(p)[0] for p in procs]
+    finally:
+        want, _ = _finish(proc)
+
+    port, other = ({k: v for k, v in ln.items() if k != "solves_per_s"} for ln in lines)
+    assert other == port  # the group's metrics, on both ranks
+    port["solves_per_s"] = lines[0]["solves_per_s"]
+    assert set(port) == set(want)
+    assert (want["devices"], want["processes"]) == (8, 1)
+    assert (port["devices"], port["processes"]) == (2, 2)
+    for k in ("mode", "batch", "ticks", "success_rate", "n_dead"):
+        assert port[k] == want[k], k
+    assert port["mode"] == f"sharded-{executor}" and port["ticks"] == ticks
+    assert port["max_viol"] < 1e-3 and want["max_viol"] < 1e-3
+    np.testing.assert_allclose(port["mean_phi"], want["mean_phi"], rtol=0, atol=F32_TOL)
 
 
 # ----------------------------------------------------------- the no-card path
