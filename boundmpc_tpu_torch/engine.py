@@ -258,7 +258,7 @@ def presolve(cfg, scfg, state, path, weights, x_phi_d, coeffs=None,
     dtype = state.q.dtype
 
     def const(v):
-        return torch.tensor(v, dtype=dtype, device=state.q.device)
+        return torch.full((), v, dtype=dtype, device=state.q.device)
 
     if scfg.bidir_window:
         # The window follows the plant backward too; a retreat across a
@@ -398,6 +398,27 @@ def postsolve(cfg, scfg, coeffs, state, path, params, u_opt, stats,
     return new_state, out
 
 
+def presolve_batch(cfg, scfg, coeffs, limits, state, path, weights, x_phi_d):
+    """``presolve`` (with the warm-start probe's constants) for a batch of
+    lanes: (state', params, mu0, reg0)."""
+    return vmap(
+        lambda s, p, w, x: presolve(cfg, scfg, s, p, w, x, coeffs=coeffs,
+                                    limits=limits)
+    )(state, path, weights, x_phi_d)
+
+
+def postsolve_batch(cfg, scfg, coeffs, limits, state, path, params, u_opt, stats):
+    """``postsolve`` for a batch of lanes: (new_state, TickOut)."""
+    # A solve may leave optional SolveStats fields None (the oracles do).
+    stats_dims = type(stats)(*(None if v is None else 0 for v in stats))
+    out_dims = TickOut(*(stats_dims if f == "stats" else 0 for f in TickOut._fields))
+    return vmap(
+        lambda s, p, pa, u, st: postsolve(cfg, scfg, coeffs, s, p, pa, u, st,
+                                          limits=limits),
+        in_dims=(0, 0, 0, 0, stats_dims), out_dims=(0, out_dims),
+    )(state, path, params, u_opt, stats)
+
+
 def tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
          coeffs: jerkint.JerkCoeffs, limits: kinematics.RobotLimits,
          state: EngineState, path: PathData, weights: torch.Tensor,
@@ -408,21 +429,12 @@ def tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
     ``solve_fn(params, u_warm) -> (u_opt, SolveStats)`` (batched) overrides
     the built-in solver.  ``pref`` (batched solver.QrPrefactor) supplies the
     setup-time QR factorization of the linear residual block."""
-    state, params, mu0, reg0 = vmap(
-        lambda s, p, w, x: presolve(cfg, scfg, s, p, w, x, coeffs=coeffs,
-                                    limits=limits)
-    )(state, path, weights, x_phi_d)
+    state, params, mu0, reg0 = presolve_batch(cfg, scfg, coeffs, limits, state, path,
+                                              weights, x_phi_d)
     if solve_fn is None:
         u_opt, stats = solver_mod.solve(cfg, scfg, coeffs, params,
                                         state.u_warm, limits, mu0=mu0,
                                         pref=pref, reg0=reg0)
     else:
         u_opt, stats = solve_fn(params, state.u_warm)
-    # A solve may leave optional SolveStats fields None (the oracles do).
-    stats_dims = type(stats)(*(None if v is None else 0 for v in stats))
-    out_dims = TickOut(*(stats_dims if f == "stats" else 0 for f in TickOut._fields))
-    return vmap(
-        lambda s, p, pa, u, st: postsolve(cfg, scfg, coeffs, s, p, pa, u, st,
-                                          limits=limits),
-        in_dims=(0, 0, 0, 0, stats_dims), out_dims=(0, out_dims),
-    )(state, path, params, u_opt, stats)
+    return postsolve_batch(cfg, scfg, coeffs, limits, state, path, params, u_opt, stats)

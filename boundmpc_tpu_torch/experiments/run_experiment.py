@@ -53,9 +53,9 @@ def run(args: argparse.Namespace, device="cuda", dtype=None) -> dict:
     else:
         runner = ClosedLoopRunner(sc, dtype=dtype, device=device)
 
-    n0 = tsqr.ls_solve.launches
+    n0 = tsqr.launches()
     log = runner.run(max_ticks=args.ticks, verbose=args.verbose)
-    log_launches("run_experiment", sum(log.iters), tsqr.ls_solve.launches - n0)
+    log_launches("run_experiment", sum(log.iters), tsqr.launches() - n0)
 
     if args.telemetry:
         from ..native.telemetry import TelemetrySink

@@ -77,9 +77,9 @@ def run(args: argparse.Namespace, device="cuda", dtype=torch.float32) -> dict:
     if args.resume:
         fleet.load_checkpoint(args.resume)
     use_stream = args.executor == "stream" and args.mpcdata is None
-    n0 = tsqr.ls_solve.launches
+    n0 = tsqr.launches()
     stats = fleet.run_stream(ticks=args.ticks) if use_stream else fleet.run(ticks=args.ticks)
-    log_launches("run_fleet", stats.n_loop, tsqr.ls_solve.launches - n0)
+    log_launches("run_fleet", stats.n_loop, tsqr.launches() - n0)
     if args.checkpoint:
         fleet.save_checkpoint(args.checkpoint)
         print(f"checkpoint: {args.checkpoint}")
@@ -115,7 +115,7 @@ def run_sharded(args: argparse.Namespace, scenarios, device, dtype) -> dict:
             eng.sharding(t) for t in fleet_tensors(scenarios, cfg, eng.device, dtype))
         pref = eng.prefactor(paths, weights, x_phi_d)
         times, n_loop, metrics = [], 0, {}
-        n0 = tsqr.ls_solve.launches
+        n0 = tsqr.launches()
         if args.executor == "stream":
             # Each rank advances its lanes in its own loop; only the metrics
             # of a chunk cross ranks.  A remainder chunk runs the last
@@ -151,7 +151,7 @@ def run_sharded(args: argparse.Namespace, scenarios, device, dtype) -> dict:
             success_rate = float(metrics["n_success"]) / args.batch
         world = eng.mesh.world_size
         log_launches(f"run_fleet rank {eng.mesh.rank} of {world} (loop iterations summed "
-                     "over the group, launches of this rank)", n_loop, tsqr.ls_solve.launches - n0)
+                     "over the group, launches of this rank)", n_loop, tsqr.launches() - n0)
     finally:
         distributed.dist.destroy_process_group()
     summary = {

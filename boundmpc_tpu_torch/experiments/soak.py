@@ -162,7 +162,7 @@ def drive(args: argparse.Namespace, scfg: solver_mod.SolverConfig, device="cuda"
     succ_all, viol_all, iters_all, dead_all, phi_all = [], [], [], [], []
     prev_dead = _np(states.dead)
     n_loop_total = 0
-    n0 = tsqr.ls_solve.launches
+    n0 = tsqr.launches()
     wall0 = time.perf_counter()
     if args.dump_each_chunk:
         os.makedirs(args.dump_each_chunk, exist_ok=True)
@@ -196,7 +196,7 @@ def drive(args: argparse.Namespace, scfg: solver_mod.SolverConfig, device="cuda"
             f"p99_iters {float(np.percentile(iters, 99)):.0f}  "
             f"{dt:.1f}s")
     wall = time.perf_counter() - wall0
-    log_launches("soak", n_loop_total, tsqr.ls_solve.launches - n0)
+    log_launches("soak", n_loop_total, tsqr.launches() - n0)
     return Series(np.concatenate(succ_all), np.concatenate(viol_all),
                   np.concatenate(iters_all), np.concatenate(dead_all),
                   np.concatenate(phi_all), wall, n_loop_total)

@@ -144,9 +144,7 @@ def stage_jacobians(cfg: ocp.OcpConfig, params: ocp.OcpParams,
 
 
 def _phi_col(dtype, device) -> torch.Tensor:
-    col = torch.zeros(8, dtype=dtype, device=device)
-    col[7] = 1.0
-    return col
+    return torch.eye(8, dtype=dtype, device=device)[7]
 
 
 def _scatter_joint(maps: torch.Tensor, N: int) -> torch.Tensor:
@@ -332,14 +330,21 @@ def _linear_stack_np(N: int, dt: float):
 _LIN_W_SLOTS = np.array([10, 11, 12, 13, 6, 7, 8, 9])
 
 
+@lru_cache(maxsize=None)
+def _linear_stack_t(N: int, dt: float, dtype, device):
+    """``_linear_stack_np`` on ``device`` once (a copy from the host cannot
+    run inside a CUDA graph): (M, the weight index of each row)."""
+    M, widx = _linear_stack_np(N, dt)
+    slots = torch.as_tensor(_LIN_W_SLOTS, device=device)
+    return (torch.as_tensor(M, dtype=dtype, device=device),
+            slots[torch.as_tensor(widx, device=device)])
+
+
 def linear_stack(cfg: ocp.OcpConfig, weights: torch.Tensor, dtype):
     """Weighted linear residual jacobian J_lin (32N, n) for the given
     (already w6-adjusted) weight vector."""
-    M, widx = _linear_stack_np(cfg.N, cfg.dt)
-    dev = weights.device
-    sw = torch.sqrt(weights)[torch.as_tensor(_LIN_W_SLOTS, device=dev)]
-    bw = sw[torch.as_tensor(widx, device=dev)]
-    return bw[:, None] * torch.as_tensor(M, dtype=dtype, device=dev)
+    M, row_slot = _linear_stack_t(cfg.N, cfg.dt, dtype, weights.device)
+    return torch.sqrt(weights)[row_slot][:, None] * M
 
 
 def linear_offsets(cfg: ocp.OcpConfig, coeffs: jerkint.JerkCoeffs,

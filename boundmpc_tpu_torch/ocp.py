@@ -136,7 +136,7 @@ def compute_initial_rot_errors(pr, pr_ref, dp_ref, br1, br2):
     dp_normed = torch.where(
         norm_ref > 1e-4,
         dp_ref / torch.where(norm_ref > 1e-4, norm_ref, torch.ones_like(norm_ref)),
-        torch.tensor([0.0, 1.0, 0.0], dtype=dp_ref.dtype, device=dp_ref.device),
+        torch.eye(3, dtype=dp_ref.dtype, device=dp_ref.device)[1],
     )
     r01 = torch.stack([br2, dp_normed, br1], dim=-1)  # columns
     dtau_01 = r01.T @ lie.rotvec_to_matrix(dtau_init) @ r01
@@ -168,7 +168,10 @@ def projection_vectors(dtau_init, dtau_init_par, dtau_init_orth1, br1, br2, dp_n
         w3 = jac_r2 @ b2
         V = torch.stack([w1, w2, w3], dim=-1)  # (3, 3) columns
         G = V.T @ V
-        dual = torch.linalg.solve(G, V.T)  # rows are the dual vectors
+        # Rows are the dual vectors.  solve_ex leaves the LU's info on the
+        # device (linalg.solve would read it on the host: a CUDA graph cannot
+        # hold that read); the factorization and the solve are the same.
+        dual = torch.linalg.solve_ex(G, V.T, check_errors=False)[0]
         return dual[0], dual[1], dual[2]
 
     v1, v2, v3 = vmap(per_seg)(dtau_init_par, dtau_init_orth1, br1, br2, dp_normed)

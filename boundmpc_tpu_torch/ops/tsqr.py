@@ -11,11 +11,17 @@ The kernel's chunk height is chosen here: ``chunk_rows(m, n)``, from the
 shared memory the kernel lays out (``smem_bytes``, the same formula as the
 kernel's).  The kernel refuses a height whose layout exceeds its limit, and
 the wrapper raises on that.
+
+Launches are counted on the device: each launch adds one to an int64 counter
+of its device, on the launch stream, right after the kernel, so a CUDA graph
+that holds a launch replays its count too (``launches`` / ``reset_launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from typing import Dict
 
 import torch
 
@@ -109,8 +115,51 @@ def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          B, m, n, chunk_rows(m, n), stream)
     if err != 0:
         raise RuntimeError(f"tsqr kernel launch failed: CUDA error {err}")
-    ls_solve.launches += 1
+    _count(A.device)
     return x
+
+
+# One device-side launch counter per device (int64, updated in place: CUDA
+# graphs hold its address).
+_COUNTS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _count(device: torch.device) -> None:
+    c = _COUNTS.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the first ls_solve launch on a device cannot be inside a CUDA "
+                               "graph capture: warm up first")
+        c = _COUNTS[device] = torch.zeros((), dtype=torch.int64, device=device)
+    c.add_(1)
+
+
+def launches() -> int:
+    """Kernel launches since the last ``reset_launches``, summed over the
+    devices (waits for the device work queued so far)."""
+    return sum(int(c) for c in _COUNTS.values())
+
+
+def reset_launches() -> None:
+    """Zero every device's launch counter (in place, on the current stream)."""
+    for c in _COUNTS.values():
+        c.zero_()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the block are not counted: the counters are put
+    back to their values at entry, on the current stream at exit (a CUDA
+    graph's warm-up runs its body once before the capture)."""
+    saved = {d: c.clone() for d, c in _COUNTS.items()}
+    try:
+        yield
+    finally:
+        for d, c in _COUNTS.items():
+            if d in saved:
+                c.copy_(saved[d])
+            else:
+                c.zero_()
 
 
 def ls_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -123,7 +172,3 @@ def ls_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if A.is_cuda:
         return _launch(A, b)
     raise ValueError(f"ls_solve: unsupported device {A.device}")
-
-
-# Kernel launches since the last reset (the main-path coverage check).
-ls_solve.launches = 0

@@ -108,6 +108,8 @@ class FleetRunner:
         # The last stream chunk's StreamOut (run_stream): the per-lane-tick
         # series behind the FleetStats and the telemetry records.
         self.stream_out: Optional[stream_mod.StreamOut] = None
+        # Stream executors by chunk (on the card each holds its CUDA graphs).
+        self._stream_fns = {}
         self._sink = None
         if telemetry_path is not None:
             from ..native.telemetry import TelemetrySink
@@ -190,8 +192,10 @@ class FleetRunner:
         assert self._mpc_writer is None, \
             "MPCData horizon streaming requires the per-tick executor (run)"
         n_chunks = (ticks + chunk - 1) // chunk
-        stream_fn = stream_mod.make_stream_ticks(self.cfg, self.scfg, chunk,
-                                                 dtype=self.dtype, device=self.device)
+        stream_fn = self._stream_fns.get(chunk)
+        if stream_fn is None:
+            stream_fn = self._stream_fns[chunk] = stream_mod.make_stream_ticks(
+                self.cfg, self.scfg, chunk, dtype=self.dtype, device=self.device)
         states = self.states
         times = []
         succ_sum, succ_n, max_viol, n_loop = 0.0, 0, 0.0, 0

@@ -207,7 +207,7 @@ def init_loop(scfg: SolverConfig, u0: torch.Tensor, mu0=None, reg0=None
 
     def scalar(v, default):
         if v is None:
-            return torch.tensor(default, dtype=dtype, device=dev)
+            return torch.full((), default, dtype=dtype, device=dev)
         return v.to(dtype)
 
     i0 = torch.zeros((), dtype=torch.int32, device=dev)
@@ -217,12 +217,12 @@ def init_loop(scfg: SolverConfig, u0: torch.Tensor, mu0=None, reg0=None
         reg=scalar(reg0, scfg.reg),
         k=i0,
         done=torch.zeros((), dtype=torch.bool, device=dev),
-        last_step=torch.tensor(float("inf"), dtype=dtype, device=dev),
+        last_step=torch.full((), float("inf"), dtype=dtype, device=dev),
         stall=i0,
         rej=i0,
         rho=torch.ones((), dtype=dtype, device=dev),
         fstall=i0,
-        sviol=torch.tensor(float("inf"), dtype=dtype, device=dev),
+        sviol=torch.full((), float("inf"), dtype=dtype, device=dev),
     )
 
 
@@ -578,6 +578,41 @@ def finish(cfg: ocp.OcpConfig, coeffs: jerkint.JerkCoeffs,
                              reg_final=out.reg, n_loop=out.k)
 
 
+def make_ctx_batch(cfg: ocp.OcpConfig, coeffs: jerkint.JerkCoeffs,
+                   params: ocp.OcpParams, pref: QrPrefactor | None, dtype) -> StepCtx:
+    """``make_ctx`` for a batch of lanes; ``pref`` batched or None."""
+    if pref is None:
+        return vmap(lambda p: make_ctx(cfg, coeffs, p, None, dtype))(params)
+    return vmap(lambda p, R0, Q0T: make_ctx(cfg, coeffs, p, QrPrefactor(R0, Q0T), dtype)
+                )(params, pref.R0, pref.Q0T)
+
+
+def init_loop_batch(scfg: SolverConfig, u0: torch.Tensor, mu0=None, reg0=None
+                    ) -> LoopState:
+    """``init_loop`` for a batch of lanes; ``mu0`` / ``reg0`` (B,) or None."""
+    return vmap(lambda u, m, g: init_loop(scfg, u, m, g),
+                in_dims=(0, None if mu0 is None else 0, None if reg0 is None else 0)
+                )(u0, mu0, reg0)
+
+
+def loop_live(scfg: SolverConfig, st: LoopState) -> torch.Tensor:
+    """(B,) lanes still iterating: not done and under the iteration cap."""
+    return (~st.done) & (st.k < scfg.max_iters)
+
+
+def masked_step(step, st: LoopState, ctx: StepCtx, live: torch.Tensor) -> LoopState:
+    """One GN iteration of the batch; lanes outside ``live`` keep their state
+    (the semantics of the JAX package's vmapped while_loop)."""
+    return tree_where(live, step(st, ctx), st)
+
+
+def finish_batch(cfg: ocp.OcpConfig, coeffs: jerkint.JerkCoeffs, params: ocp.OcpParams,
+                 limits: kinematics.RobotLimits, st: LoopState):
+    """``finish`` for a batch of lanes: (u_opt (B, N, nu), SolveStats), its
+    ``n_loop`` each lane's own iterations."""
+    return vmap(lambda p, s: finish(cfg, coeffs, p, limits, s))(params, st)
+
+
 def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
           params: ocp.OcpParams, u0: torch.Tensor,
           limits: kinematics.RobotLimits, mu0=None,
@@ -590,23 +625,19 @@ def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
     ``mu0`` / ``reg0`` (B,) override the initial barrier weight / damping;
     ``pref`` is the batched setup-time QR prefactor (None factors here).
     ``stats.n_loop`` holds the number of loop iterations run, which is the
-    number of ls_solve launches."""
+    number of ls_solve launches.  This is the eager loop, two host reads per
+    iteration; on the card the lockstep tick replays it as CUDA graphs
+    (``batch.GraphedTick``)."""
     dtype = u0.dtype
-    if pref is None:
-        ctx = vmap(lambda p: make_ctx(cfg, coeffs, p, None, dtype))(params)
-    else:
-        ctx = vmap(lambda p, R0, Q0T: make_ctx(cfg, coeffs, p, QrPrefactor(R0, Q0T),
-                                               dtype))(params, pref.R0, pref.Q0T)
+    ctx = make_ctx_batch(cfg, coeffs, params, pref, dtype)
     step = make_stepper(cfg, scfg, coeffs, limits, dtype)
-    st = vmap(lambda u, m, g: init_loop(scfg, u, m, g),
-              in_dims=(0, None if mu0 is None else 0, None if reg0 is None else 0)
-              )(u0, mu0, reg0)
+    st = init_loop_batch(scfg, u0, mu0, reg0)
     n_loop = 0
     while True:
-        live = (~st.done) & (st.k < scfg.max_iters)
+        live = loop_live(scfg, st)
         if not bool(live.any()):
             break
-        st = tree_where(live, step(st, ctx), st)
+        st = masked_step(step, st, ctx, live)
         n_loop += 1
-    u_opt, stats = vmap(lambda p, s: finish(cfg, coeffs, p, limits, s))(params, st)
+    u_opt, stats = finish_batch(cfg, coeffs, params, limits, st)
     return u_opt, stats._replace(n_loop=torch.full_like(stats.n_loop, n_loop))

@@ -17,11 +17,16 @@ Phases (any failure exits nonzero and prints no result line):
      one library call (torch.linalg.lstsq) timed in turns, beside the
      kernel's bound;
   4. the main path: a B = 256 fleet through ``FleetRunner.run_stream`` (the
-     stream executor) under RUNTIME_F32 from rest, with the telemetry sink
-     on, gated on success >= 0.99 over live lane-ticks, no dead lane, finite
-     violations, phi > 0 on every lane, and one kernel launch per loop
-     iteration; the telemetry log read back holds B x K records whose
-     success column is the executor's;
+     stream executor, CUDA graphs on the card) under RUNTIME_F32 from rest
+     for K_MAIN ticks, with the telemetry sink on, gated on success >= 0.99
+     over live lane-ticks, no dead lane, finite violations, phi > 0 on every
+     lane, and one kernel launch per loop iteration (the kernel's device-side
+     counter, which graph replays advance); the telemetry log read back holds
+     B x K records whose success column is the executor's; then the graphed
+     ``stream.make_stream_ticks`` against the eager ``make_stream_fn`` on the
+     same fleet for GRAPH_TICKS ticks, called twice (capture, then replay
+     only): the same loop iterations and every state field and series equal
+     bit for bit, each timed per loop iteration;
   5. the same executor on a small fleet in float32 on the card against the
      port in float64 on the CPU (same success pattern, plant state within
      the float32 bounds the JAX package holds its own executors to);
@@ -30,7 +35,10 @@ Phases (any failure exits nonzero and prints no result line):
      violations, kernel launches == the batched solves' loop iterations,
      one MPCData record per lane-tick), then a checkpoint round trip that
      must reproduce the fleet's state bit for bit;
-  7. one robot: ``ClosedLoopRunner`` (B = 1 through the kernel) on
+  7. one robot: the graphed ``batch.make_batched_tick`` against the eager
+     ``engine.tick`` for GRAPH_SINGLE_TICKS ticks at experiment1 from rest
+     (the same loop iterations, state and TickOut equal bit for bit, each
+     tick timed), then ``ClosedLoopRunner`` (B = 1 through the kernel) on
      experiment1 for SINGLE_TICKS ticks under the JAX package's own float32
      gates, then a replan onto experiment2 under its replan gates, and the
      ``api.BoundMPC`` facade for API_STEPS steps with the reference calling
@@ -75,7 +83,13 @@ Phases (any failure exits nonzero and prints no result line):
      worst-lane and tick-2 state dumps; each gated on its JSON line having
      the JAX script's key set and on kernel launches == the GN loop
      iterations the CLI reports, the soak on its gate and on its dump being
-     the tick-2 state bit for bit.
+     the tick-2 state bit for bit;
+ 14. the benchmark's window through the soak's command line: B = 256, 120
+     ticks from rest in chunks of 20 (``bench.py``'s gated window, the deep
+     path region), gated on no dead lane, success >= 0.99 over live
+     lane-ticks and kernel launches == loop iterations; its solves/s, max
+     viol and the JAX package's own gate (success >= 0.999, max viol <
+     1e-3), which the port does not pass yet, are logged.
 Each phase logs its seconds.  Then one JSON line describing the kernels,
 and last the device JSON line.
 """
@@ -95,9 +109,12 @@ from types import SimpleNamespace
 import numpy as np
 
 B_MAIN = 256
-K_MAIN = 6  # stream ticks, one executor call; keeps the script under 10 minutes
+K_MAIN = 20  # stream ticks, one executor call: past the early path region
+GRAPH_TICKS = 2  # phase 4: the graphed stream against the eager one, B_MAIN lanes
+GRAPH_SINGLE_TICKS = 3  # phase 7: the graphed tick against engine.tick, one robot
 B_SMALL, K_SMALL = 4, 4
 CLI_B = 8  # phase 13's fleets
+WINDOW = (256, 120, 20)  # phase 14: the soak's B, ticks and chunk (bench.py's window)
 # Phase 3: the main path's shape, a larger batch, several chunks, ragged rows
 # with a small n, the widest n the kernel takes, one scenario, phase 13's
 # fleets.
@@ -279,11 +296,11 @@ def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
     log(f"main path: fleet B={B_MAIN} built in {time.perf_counter() - t0:.1f} s")
 
     prev_dead = fleet.states.dead.cpu().numpy()
-    tsqr.ls_solve.launches = 0
+    tsqr.reset_launches()
     t0 = time.perf_counter()
     stats = fleet.run_stream(ticks=K_MAIN, chunk=K_MAIN)
     total = time.perf_counter() - t0
-    launches = tsqr.ls_solve.launches
+    launches = tsqr.launches()
     fleet.close()
     so = fleet.stream_out
 
@@ -300,6 +317,10 @@ def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
         f"success {success:.5f} over {int(live.sum())} live lane-ticks, max viol "
         f"{max_viol:.3e}, n_dead {n_dead}, phi min {phi.min():.4f} mean {phi.mean():.4f}")
     log(f"main path FleetStats: {stats}")
+    cap = fleet._stream_fns[K_MAIN].capture_seconds
+    log(f"main path: {1e3 * total / so.n_loop:.2f} ms per loop iteration over the call, the "
+        f"CUDA graphs' warm-up and capture ({', '.join(f'{c:.2f}' for c in cap)} s) included; "
+        f"{1e3 * (total - sum(cap)) / so.n_loop:.2f} ms without it")
     if not np.isfinite(viol).all():
         fail("non-finite violation")
     if success < 0.99:
@@ -324,6 +345,82 @@ def phase_main_path(torch, runtime, scfg, tsqr, telemetry):
     if not (rec["iters"].reshape(K_MAIN, B_MAIN) == iters.astype(np.float32)).all():
         fail("telemetry iters column differs from the executor's")
     return launches
+
+
+def phase_stream_graphs(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr):
+    """The graphed stream executor (``make_stream_ticks``) against the eager
+    one (``make_stream_fn``) on the same B_MAIN fleet and inputs, GRAPH_TICKS
+    ticks: the same loop iterations, every EngineState field and StreamOut
+    series equal bit for bit, launches == loop iterations on each; the graphed
+    executor called twice (capture, then replay only), each held to the
+    eager run."""
+    fleet = build_fleet(B_MAIN, cfg, "cuda", torch.float32)
+    pref = batch.make_prefactor_batch(cfg, *fleet[1:], dtype=torch.float32)
+    graphed = stream_mod.make_stream_ticks(cfg, scfg, GRAPH_TICKS)
+    if not isinstance(graphed, stream_mod.GraphedStream):
+        fail("make_stream_ticks on the card is not the graphed executor")
+    runs = {}
+    for name, fn in (("eager", stream_mod.make_stream_fn(cfg, scfg, GRAPH_TICKS)),
+                     ("graphed, first call", graphed), ("graphed, replay", graphed)):
+        tsqr.reset_launches()
+        t0 = time.perf_counter()
+        st, so = fn(*fleet, pref)
+        torch.cuda.synchronize()
+        runs[name] = (st, so, time.perf_counter() - t0, tsqr.launches())
+    st_e, so_e, _, _ = runs["eager"]
+    for name, (st, so, wall, launches) in runs.items():
+        bad = [] if name == "eager" else (
+            _differs(st, st_e) + _differs(so._replace(n_loop=None), so_e._replace(n_loop=None)))
+        log(f"stream graphs: {name} B={B_MAIN} {GRAPH_TICKS} ticks: n_loop {so.n_loop}, "
+            f"launches {launches}, {wall:.2f} s, {1e3 * wall / so.n_loop:.2f} ms per loop "
+            f"iteration" + ("" if name == "eager" else
+                            f"; against eager: {'equal bit for bit' if not bad else bad}"))
+        if bad:
+            fail(f"stream graphs: {name} differs from the eager executor in {bad}")
+        if not so.n_loop == so_e.n_loop == launches:
+            fail(f"stream graphs: {name} n_loop {so.n_loop} / launches {launches} against "
+                 f"eager n_loop {so_e.n_loop}")
+    log(f"stream graphs: warm-up and capture {graphed.capture_seconds[0]:.2f} s")
+
+
+def phase_single_graphs(torch, runtime, engine, batch, scfg, tsqr):
+    """The graphed lockstep tick (``make_batched_tick``) against the eager
+    ``engine.tick`` for GRAPH_SINGLE_TICKS ticks of one robot at experiment1
+    from rest, each chained from its own outputs: the same loop iterations,
+    the state and every TickOut leaf equal bit for bit, launches == loop
+    iterations."""
+    runner = runtime.ClosedLoopRunner(runtime.experiment1(), solver_cfg=scfg, device="cuda")
+    graphed = runner._tick
+    if not isinstance(graphed, batch.GraphedTick):
+        fail("make_batched_tick on the card is not the graphed executor")
+
+    def eager(*a):
+        return engine.tick(runner.cfg, scfg, graphed.coeffs, graphed.limits, *a[:4], None, a[4])
+
+    rest = (runner.path, runner.weights, runner.x_phi_d, runner._pref)
+    st = {"eager": runner.state, "graphed": runner.state}
+    ms = {"eager": [], "graphed": []}
+    for k in range(GRAPH_SINGLE_TICKS):
+        out = {}
+        for name, fn in (("eager", eager), ("graphed", graphed)):
+            tsqr.reset_launches()
+            t0 = time.perf_counter()
+            st[name], out[name] = fn(st[name], *rest)
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+            n_loop = int(out[name].stats.n_loop[0])
+            if tsqr.launches() != n_loop:
+                fail(f"single graphs: {name} tick {k}: launches {tsqr.launches()} != n_loop "
+                     f"{n_loop}")
+        bad = _differs(st["graphed"], st["eager"]) + _differs(out["graphed"], out["eager"])
+        log(f"single graphs: tick {k}: n_loop {int(out['eager'].stats.n_loop[0])} / "
+            f"{int(out['graphed'].stats.n_loop[0])}, eager {ms['eager'][-1]:.1f} ms, graphed "
+            f"{ms['graphed'][-1]:.1f} ms; {'equal bit for bit' if not bad else bad}")
+        if bad:
+            fail(f"single graphs: tick {k} differs from engine.tick in {bad}")
+    log(f"single graphs: warm-up and capture per input layout "
+        f"{', '.join(f'{c:.2f}' for c in graphed.capture_seconds)} s (included in the graphed "
+        f"ticks' times above)")
 
 
 def phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet):
@@ -359,11 +456,11 @@ def phase_lockstep(torch, runtime, mpcdata, scfg, tsqr):
     mpc_path = OUT / "lockstep_mpcdata.bin"
     fleet = runtime.FleetRunner(scs, solver_cfg=scfg, dtype=torch.float32,
                                 mpcdata_path=str(mpc_path), device="cuda")
-    tsqr.ls_solve.launches = 0
+    tsqr.reset_launches()
     t0 = time.perf_counter()
     stats = fleet.run(ticks=LOCKSTEP_TICKS)
     total = time.perf_counter() - t0
-    launches = tsqr.ls_solve.launches
+    launches = tsqr.launches()
     fleet.close()
     log(f"lockstep: {LOCKSTEP_TICKS} ticks at B={B_MAIN} in {total:.2f} s, "
         f"{1e3 * total / LOCKSTEP_TICKS:.1f} ms wall per tick, solve loop iterations "
@@ -404,7 +501,7 @@ def phase_single(torch, runtime, api, scfg, tsqr, kin):
     runner = runtime.ClosedLoopRunner(runtime.experiment1(), solver_cfg=scfg, device="cuda")
     if runner.dtype != torch.float32:
         fail(f"ClosedLoopRunner on the card serves {runner.dtype}")
-    tsqr.ls_solve.launches = 0
+    tsqr.reset_launches()
     t0 = time.perf_counter()
     log1 = runner.run(max_ticks=SINGLE_TICKS)
     t1 = time.perf_counter()
@@ -414,7 +511,7 @@ def phase_single(torch, runtime, api, scfg, tsqr, kin):
     phi_replan = float(runner.state.phi[0])
     log2 = runner.run(max_ticks=REPLAN_TICKS)
     t2 = time.perf_counter()
-    launches = tsqr.ls_solve.launches
+    launches = tsqr.launches()
     iters = sum(log1.iters) + sum(log2.iters)
     phis = np.asarray(log1.phi)
     log(f"single robot: experiment1 {len(log1.phi)} ticks in {t1 - t0:.2f} s "
@@ -458,7 +555,7 @@ def phase_single(torch, runtime, api, scfg, tsqr, kin):
                        p0=p0, params=api.MPCParams(weights=sc.weights.tolist()), device="cuda")
     x_phi_d = np.array([mpc.phi_max[0], 0.0, 0.0])
     q, dq, ddq, jerk = sc.q0.copy(), np.zeros(7), np.zeros(7), np.zeros(7)
-    tsqr.ls_solve.launches = 0
+    tsqr.reset_launches()
     t_steps, iters_api = [], 0
     traj_keys = {"p", "v", "a", "q", "dq", "ddq", "dddq", "phi", "dphi", "ddphi", "dddphi"}
     for _ in range(API_STEPS):
@@ -477,7 +574,7 @@ def phase_single(torch, runtime, api, scfg, tsqr, kin):
             fail("BoundMPC: no iterations or no time")
         iters_api += it
         q, dq, ddq, jerk = traj["q"][:, 0], traj["dq"][:, 0], traj["ddq"][:, 0], traj["dddq"][:, 0]
-    launches_api = tsqr.ls_solve.launches
+    launches_api = tsqr.launches()
     log(f"BoundMPC: {API_STEPS} steps, median {1e3 * float(np.median(t_steps)):.1f} ms wall per "
         f"step, phi {mpc.phi_current[0]:.4f}, error_count {mpc.error_count}, kernel launches "
         f"{launches_api}, GN iterations {iters_api}")
@@ -505,13 +602,11 @@ def phase_jacobians(torch, fleet, engine, jerkint, kin, solver, bench):
     cfg, scfg, dt = fleet.cfg, fleet.scfg, torch.float32
     co = jerkint.coeff_matrices(cfg.N, cfg.dt, dtype=dt, device="cuda")
     lim = kin.robot_limits(dtype=dt, device="cuda")
-    st, params, mu0, reg0 = vmap(lambda s, p, w, x: engine.presolve(
-        cfg, scfg, s, p, w, x, coeffs=co, limits=lim))(fleet.states, fleet.paths,
-                                                         fleet.weights, fleet.x_phi_d)
+    st, params, mu0, reg0 = engine.presolve_batch(cfg, scfg, co, lim, fleet.states, fleet.paths,
+                                                  fleet.weights, fleet.x_phi_d)
     u = st.u_warm.reshape(st.u_warm.shape[0], -1)
-    ctx = vmap(lambda p, R0, Q0T: solver.make_ctx(cfg, co, p, solver.QrPrefactor(R0, Q0T), dt))(
-        params, fleet._pref.R0, fleet._pref.Q0T)
-    ls = vmap(lambda w, m, g: solver.init_loop(scfg, w, m, g))(st.u_warm, mu0, reg0)
+    ctx = solver.make_ctx_batch(cfg, co, params, fleet._pref, dt)
+    ls = solver.init_loop_batch(scfg, st.u_warm, mu0, reg0)
     res, out = {}, {}
     for jac in ("structured", "ad"):
         s2 = scfg._replace(jac=jac)
@@ -575,7 +670,7 @@ def phase_sharded(torch, distributed, batch, stream_mod, build_fleet, cfg, scfg,
         if _differs(pref_s, pref):
             fail(f"sharded prefactor differs in {_differs(pref_s, pref)}")
         ms = {}
-        tsqr.ls_solve.launches = 0
+        tsqr.reset_launches()
         t0 = time.perf_counter()
         st_t, out_t, m_tick = eng.tick(*local, pref_s)
         sync()
@@ -583,7 +678,7 @@ def phase_sharded(torch, distributed, batch, stream_mod, build_fleet, cfg, scfg,
         st_s, so_s, m_stream = eng.stream(*local, pref_s, SHARD_TICKS)
         sync()
         ms["sharded"] = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
-        launches = tsqr.ls_solve.launches
+        launches = tsqr.launches()
     finally:
         distributed.dist.destroy_process_group()
 
@@ -667,16 +762,12 @@ def phase_report(generate_report, report_from_telemetry, scenario, log1, exp1, d
 def _start(torch, runner, engine, solver, kin, scfg):
     """Presolve of a runner's batch: (params, warm plan, mu0, reg0), the
     tick's StepCtx and the solver's first LoopState, and the limits."""
-    from torch.func import vmap
-
     cfg, co, dt = runner.cfg, runner.coeffs, runner.dtype
     lim = kin.robot_limits(dtype=dt, device=runner.device)
-    st, params, mu0, reg0 = vmap(lambda s, p, w, x: engine.presolve(
-        cfg, scfg, s, p, w, x, coeffs=co, limits=lim))(runner.state, runner.path,
-                                                         runner.weights, runner.x_phi_d)
-    ctx = vmap(lambda p, R0, Q0T: solver.make_ctx(cfg, co, p, solver.QrPrefactor(R0, Q0T), dt))(
-        params, runner._pref.R0, runner._pref.Q0T)
-    ls = vmap(lambda u, m, g: solver.init_loop(scfg, u, m, g))(st.u_warm, mu0, reg0)
+    st, params, mu0, reg0 = engine.presolve_batch(cfg, scfg, co, lim, runner.state, runner.path,
+                                                  runner.weights, runner.x_phi_d)
+    ctx = solver.make_ctx_batch(cfg, co, params, runner._pref, dt)
+    ls = solver.init_loop_batch(scfg, st.u_warm, mu0, reg0)
     return SimpleNamespace(params=params, u_warm=st.u_warm, mu0=mu0, reg0=reg0, ctx=ctx, ls=ls,
                            limits=lim)
 
@@ -701,13 +792,13 @@ def _step_and_solves(torch, runtime, engine, solver, kin, tsqr, scfg, device, dt
         stacks[method] = (A, b)
         du[method] = tsqr.ls_solve(A, b)
     for method in ("qr_full", "qr") if solve else ():
-        tsqr.ls_solve.launches = 0
+        tsqr.reset_launches()
         t0 = time.perf_counter()
         u, st = solver.solve(cfg, scfg._replace(method=method), co, s0.params, s0.u_warm,
                              s0.limits, mu0=s0.mu0, pref=runner._pref, reg0=s0.reg0)
         if device == "cuda":
             torch.cuda.synchronize()
-        solves[method] = (u, st, tsqr.ls_solve.launches, time.perf_counter() - t0)
+        solves[method] = (u, st, tsqr.launches(), time.perf_counter() - t0)
     rel = float((du["qr"] - du["qr_full"]).abs().max() / du["qr_full"].abs().max())
     return stacks, du, rel, solves
 
@@ -845,12 +936,12 @@ def _cli(tsqr, module, name, argv):
     here, seconds).  Fails unless the JSON line has the JAX script's key set
     and the launches equal the GN loop iterations the CLI reports."""
     out, err = io.StringIO(), io.StringIO()
-    tsqr.ls_solve.launches = 0
+    tsqr.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = module.main([str(a) for a in argv])
     seconds = time.perf_counter() - t0
-    launches = tsqr.ls_solve.launches
+    launches = tsqr.launches()
     log(f"cli: {name} {' '.join(str(a) for a in argv)}: exit {rc} in {seconds:.1f} s")
     for line in (out.getvalue() + err.getvalue()).splitlines():
         log(f"cli:   | {line}")
@@ -953,6 +1044,24 @@ def phase_cli(tsqr, telemetry, mpcdata, engine, batch, stream_mod, cfg, scfg):
     return sum(n for n, _ in runs.values())
 
 
+def phase_window(tsqr):
+    """The benchmark's window through the soak's command line, in this
+    process."""
+    from boundmpc_tpu_torch.experiments import soak
+
+    B, ticks, chunk = WINDOW
+    rc, s, _, n, sec = _cli(tsqr, soak, "soak", ["--B", B, "--ticks", ticks, "--chunk", chunk])
+    log(f"window: B={B} {ticks} ticks in chunks of {chunk}: {s['solves_per_s']} solves/s "
+        f"({sec:.1f} s, {n} loop iterations, {1e3 * sec / n:.2f} ms per loop iteration), "
+        f"success {s['success_rate']}, max viol {s['max_viol']}, n_dead {s['n_dead']}, p99 iters "
+        f"{s['p99_iters']}; the JAX package's gate (success >= 0.999, max viol < 1e-3) "
+        f"{'passed' if s['passed'] else 'not passed'} (exit {rc})")
+    if not (s["soak"]["B"] == B and s["soak"]["ticks"] == ticks and s["n_dead"] == 0
+            and s["success_rate"] >= 0.99):
+        fail(f"window: {s}")
+    return n
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -985,11 +1094,13 @@ def _phases(torch, card, t_start) -> int:
     cfg, scfg = ocp.OcpConfig(), solver.RUNTIME_F32
     with clocked("phase 4"):
         launches = phase_main_path(torch, runtime, scfg, tsqr, telemetry)
+        phase_stream_graphs(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr)
     with clocked("phase 5"):
         phase_small_reference(torch, cfg, scfg, stream_mod, batch, build_fleet)
     with clocked("phase 6"):
         launches_lockstep, fleet = phase_lockstep(torch, runtime, mpcdata, scfg, tsqr)
     with clocked("phase 7"):
+        phase_single_graphs(torch, runtime, engine, batch, scfg, tsqr)
         launches_single, log1, exp1 = phase_single(torch, runtime, api, scfg, tsqr, kinematics)
     with clocked("phase 8"):
         phase_jacobians(torch, fleet, engine, jerkint, kinematics, solver, tsqr_bench)
@@ -1007,8 +1118,12 @@ def _phases(torch, card, t_start) -> int:
         phase_oracles(torch, runtime, engine, solver, kinematics, jerkint, parity)
     with clocked("phase 13"):
         launches_cli = phase_cli(tsqr, telemetry, mpcdata, engine, batch, stream_mod, cfg, scfg)
+    with clocked("phase 14"):
+        launches_window = phase_window(tsqr)
 
-    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; {card}")
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; {card}")
     b1 = timed[TIMED_SHAPES[2]]
     print(json.dumps({"kernels": [{
         "name": "tsqr_ls_solve", "route": "cuda",
@@ -1017,6 +1132,7 @@ def _phases(torch, card, t_start) -> int:
         "launches": launches, "launches_lockstep": launches_lockstep,
         "launches_single": launches_single, "launches_sharded": launches_sharded,
         "launches_qr_full": launches_qr_full, "launches_cli": launches_cli,
+        "launches_window": launches_window,
         "at_cli": {"shape": [CLI_B, 550, 80], "max_abs_err": errs[(CLI_B, 550, 80)]},
         **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],
