@@ -116,6 +116,8 @@ class Series(NamedTuple):
     phi: np.ndarray
     wall: float  # seconds over the chunks
     n_loop: int  # GN loop iterations, one kernel launch each on the card
+    error_count: np.ndarray  # consecutive-failure counter after each tick
+    exit_reason: np.ndarray  # solver.EXIT_REASONS code (stream), -1 (tick executor)
 
 
 def dump_states(states: engine.EngineState, path_npz) -> None:
@@ -138,12 +140,13 @@ def drive(args: argparse.Namespace, scfg: solver_mod.SolverConfig, device="cuda"
 
         def step_chunk(states):
             states, out = run_fn(states, paths, weights, x_phi_d, pref)
-            return states, (out.success, out.viol, out.iters, out.dead, out.phi, out.n_loop)
+            return states, (out.success, out.viol, out.iters, out.dead, out.phi,
+                            out.error_count, out.exit_reason, out.n_loop)
     else:
         tick_b = batch.make_batched_tick(cfg, scfg, dtype=dtype, device=device)
 
         def step_chunk(states):
-            sc, vl, it, dd, ph, n_loop = [], [], [], [], [], 0
+            sc, vl, it, dd, ph, ec, n_loop = [], [], [], [], [], [], 0
             for _ in range(K):
                 states, out = tick_b(states, paths, weights, x_phi_d, pref)
                 sc.append(out.success)
@@ -151,15 +154,17 @@ def drive(args: argparse.Namespace, scfg: solver_mod.SolverConfig, device="cuda"
                 it.append(out.stats.iters)
                 dd.append(states.dead)
                 ph.append(states.phi)
+                ec.append(out.error_count)
                 n_loop += int(out.stats.n_loop[0])
             stk = lambda xs: torch.stack(xs, dim=0)  # noqa: E731
-            return states, (stk(sc), stk(vl), stk(it), stk(dd), stk(ph), n_loop)
+            return states, (stk(sc), stk(vl), stk(it), stk(dd), stk(ph), stk(ec),
+                            torch.full_like(stk(ec), -1), n_loop)
 
     sync(torch.device(device))
     log(f"soak: built B={B} fleet in {time.perf_counter() - t0:.1f}s; "
         f"executor={args.executor} max_iters={scfg.max_iters} ticks={n_chunks * K}")
 
-    succ_all, viol_all, iters_all, dead_all, phi_all = [], [], [], [], []
+    succ_all, viol_all, iters_all, dead_all, phi_all, errc_all, exit_all = ([] for _ in range(7))
     prev_dead = _np(states.dead)
     n_loop_total = 0
     n0 = tsqr.launches()
@@ -174,10 +179,12 @@ def drive(args: argparse.Namespace, scfg: solver_mod.SolverConfig, device="cuda"
         if args.dump_each_chunk:
             dump_states(states, os.path.join(args.dump_each_chunk, f"state_t{ci * K}.npz"))
         tc = time.perf_counter()
-        states, (succ, viol, iters, dead, phi, n_loop) = step_chunk(states)
+        states, (succ, viol, iters, dead, phi, errc, exit_, n_loop) = step_chunk(states)
         sync(torch.device(device))
         dt = time.perf_counter() - tc
         succ, viol, iters, dead, phi = (_np(x) for x in (succ, viol, iters, dead, phi))
+        errc_all.append(_np(errc))
+        exit_all.append(_np(exit_))
         # Live mask: lane-ticks through (and including) the death tick count;
         # later ticks of a dead lane are a stopped robot (FleetStats contract).
         live = ~np.concatenate([prev_dead[None, :], dead[:-1]], axis=0)
@@ -199,7 +206,54 @@ def drive(args: argparse.Namespace, scfg: solver_mod.SolverConfig, device="cuda"
     log_launches("soak", n_loop_total, tsqr.launches() - n0)
     return Series(np.concatenate(succ_all), np.concatenate(viol_all),
                   np.concatenate(iters_all), np.concatenate(dead_all),
-                  np.concatenate(phi_all), wall, n_loop_total)
+                  np.concatenate(phi_all), wall, n_loop_total,
+                  np.concatenate(errc_all), np.concatenate(exit_all))
+
+
+def live_mask(dead: np.ndarray) -> np.ndarray:
+    """(ticks, B) live lane-ticks of a dead series: through (and including)
+    each lane's death tick (the FleetStats contract)."""
+    return ~np.concatenate([np.zeros_like(dead[:1]), dead[:-1]], axis=0)
+
+
+def exit_name(code: int) -> str:
+    return solver_mod.EXIT_REASONS[code] if code >= 0 else "-"
+
+
+def failing_lane_ticks(s: Series, t0: int = 0) -> list:
+    """Every failing live lane-tick of a soak's series, by lane then tick
+    (ticks counted from ``t0``): lane, tick, viol, GN iterations,
+    error_count after the tick and the solve's exit reason."""
+    ticks, lanes = np.nonzero(~s.success & live_mask(s.dead))
+    return sorted(({"lane": int(ln), "tick": t0 + int(t), "viol": float(s.viol[t, ln]),
+                    "iters": int(s.iters[t, ln]), "error_count": int(s.error_count[t, ln]),
+                    "exit": exit_name(int(s.exit_reason[t, ln]))} for t, ln in zip(ticks, lanes)),
+                  key=lambda r: (r["lane"], r["tick"]))
+
+
+def failing_lanes(rows: list) -> list:
+    """Per failing lane of ``failing_lane_ticks``: its failing ticks, the
+    first one, the peak viol and the exit reason of the peak's tick."""
+    out = {}
+    for r in rows:
+        ln = out.setdefault(r["lane"], {"lane": r["lane"], "ticks": [], "first_fail_tick":
+                                        r["tick"], "peak_viol": -1.0, "exit": r["exit"]})
+        ln["ticks"].append(r["tick"])
+        if r["viol"] > ln["peak_viol"]:
+            ln["peak_viol"], ln["exit"] = r["viol"], r["exit"]
+    return list(out.values())
+
+
+def log_census(s: Series) -> None:
+    """Every failing lane-tick on a ``census:`` line of its own, then one
+    ``failing lanes:`` line (first failing tick, peak viol, its exit)."""
+    rows = failing_lane_ticks(s)
+    for r in rows:
+        log(f"census: lane {r['lane']} tick {r['tick']} viol {r['viol']:.9g} iters {r['iters']} "
+            f"error_count {r['error_count']} exit {r['exit']}")
+    log("failing lanes: " + ("; ".join(
+        f"{ln['lane']} from tick {ln['first_fail_tick']} ({len(ln['ticks'])} ticks, peak viol "
+        f"{ln['peak_viol']:.4g}, exit {ln['exit']})" for ln in failing_lanes(rows)) or "none"))
 
 
 def summarize(args: argparse.Namespace, scfg: solver_mod.SolverConfig, s: Series) -> dict:
@@ -208,8 +262,7 @@ def summarize(args: argparse.Namespace, scfg: solver_mod.SolverConfig, s: Series
     succ_all, viol_all, iters_all, dead_all, phi_all = (s.success, s.viol, s.iters, s.dead,
                                                         s.phi)
     B = args.B
-    dead0 = np.zeros_like(dead_all[0])[None]
-    live_all = ~np.concatenate([dead0, dead_all[:-1]], axis=0)
+    live_all = live_mask(dead_all)
     n_dead = int(dead_all[-1].sum())
     viol_live = np.where(live_all, viol_all, 0.0)
     success_rate = float(succ_all[live_all].mean())
@@ -275,7 +328,9 @@ def run(args: argparse.Namespace, device="cuda", dtype=torch.float32) -> dict:
     """The soak of ``args`` on ``device``; prints the summary line and
     returns the summary."""
     scfg = solver_config(args)
-    summary = summarize(args, scfg, drive(args, scfg, device, dtype))
+    series = drive(args, scfg, device, dtype)
+    log_census(series)
+    summary = summarize(args, scfg, series)
     print(json.dumps(summary), flush=True)
     return summary
 

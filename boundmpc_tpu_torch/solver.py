@@ -595,6 +595,32 @@ def init_loop_batch(scfg: SolverConfig, u0: torch.Tensor, mu0=None, reg0=None
                 )(u0, mu0, reg0)
 
 
+# Why a solve ended, by ``exit_reason``'s code: its index here.
+EXIT_REASONS = ("dead", "step", "stagnation", "soft budget", "cap", "restoration")
+
+
+def exit_reason(scfg: SolverConfig, st: LoopState) -> torch.Tensor:
+    """int32 code (an index of EXIT_REASONS) of why each lane's solve ended,
+    read from its final LoopState (elementwise, any batch shape), the first
+    that holds of: "dead" (no iteration: a dead lane skips its solve), "cap"
+    (max_iters reached unconverged), "restoration" (ended in feasibility-
+    restoration mode), "soft budget" (the progress-gated budget's exit),
+    "stagnation" (the stall counter fired), else "step" (the step fell
+    below tol_step).  Not in the JAX package: the port's census reads it."""
+    code = torch.full_like(st.k, EXIT_REASONS.index("step"))
+    if scfg.stall_iters > 0:
+        code = torch.where(st.stall >= scfg.stall_iters,
+                           torch.full_like(code, EXIT_REASONS.index("stagnation")), code)
+    if scfg.soft_iters > 0 and scfg.rho_restore <= 0:
+        soft = st.done & (st.k > scfg.soft_iters) & (st.fstall >= 6)
+        code = torch.where(soft, torch.full_like(code, EXIT_REASONS.index("soft budget")), code)
+    code = torch.where(st.rho < 1.0, torch.full_like(code, EXIT_REASONS.index("restoration")),
+                       code)
+    code = torch.where(~st.done & (st.k >= scfg.max_iters),
+                       torch.full_like(code, EXIT_REASONS.index("cap")), code)
+    return torch.where(st.k == 0, torch.full_like(code, EXIT_REASONS.index("dead")), code)
+
+
 def loop_live(scfg: SolverConfig, st: LoopState) -> torch.Tensor:
     """(B,) lanes still iterating: not done and under the iteration cap."""
     return (~st.done) & (st.k < scfg.max_iters)

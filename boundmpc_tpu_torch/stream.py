@@ -42,6 +42,9 @@ class StreamOut(NamedTuple):
     error_count: torch.Tensor  # (K, B) int32 consecutive-failure counter
     dead: torch.Tensor  # (K, B) bool — lane stopped at/before this tick
     n_loop: int  # global loop iterations executed
+    # (K, B) int32 why each tick's solve ended (solver.EXIT_REASONS); not in
+    # the JAX package.
+    exit_reason: torch.Tensor | None = None
 
 
 class StreamCarry(NamedTuple):
@@ -57,6 +60,7 @@ class StreamCarry(NamedTuple):
     dphi: torch.Tensor  # (B, K)
     errc: torch.Tensor  # (B, K) int32
     dead: torch.Tensor  # (B, K)
+    exit: torch.Tensor  # (B, K) int32
 
 
 class _Records(NamedTuple):
@@ -69,6 +73,7 @@ class _Records(NamedTuple):
     dphi: torch.Tensor
     errc: torch.Tensor  # int32
     dead: torch.Tensor  # bool
+    exit: torch.Tensor  # int32 solver.exit_reason
 
 
 class _Stream:
@@ -120,7 +125,7 @@ class _Stream:
 
         return _Records(zeros(torch.bool), zeros(self.dtype), zeros(torch.int32),
                         zeros(self.dtype), zeros(self.dtype), zeros(torch.int32),
-                        zeros(torch.bool))
+                        zeros(torch.bool), zeros(torch.int32))
 
     def advance(self, t, ls, ctx):
         """One loop iteration's GN step of the lanes still solving: (ls',
@@ -149,7 +154,8 @@ class _Stream:
         # the write is masked off.
         lanes = torch.arange(t.shape[0], device=t.device)
         t_idx = torch.clamp(t, max=self.K - 1).long()
-        for arr, v in zip(rec, (succ1, viol1, iters1, phi1, dphi1, errc1, dead1)):
+        exit1 = solver_mod.exit_reason(self.scfg, ls)
+        for arr, v in zip(rec, (succ1, viol1, iters1, phi1, dphi1, errc1, dead1, exit1)):
             arr[lanes, t_idx] = torch.where(solve_done, v, arr[lanes, t_idx])
         return (tree_where(solve_done, st2, states), tree_where(solve_done, ls2, ls),
                 tree_where(solve_done, ctx2, ctx), torch.where(solve_done, t + 1, t))
@@ -157,7 +163,7 @@ class _Stream:
     def out(self, rec: _Records, n_loop: int) -> StreamOut:
         return StreamOut(success=rec.succ.T, viol=rec.viol.T, iters=rec.iters.T,
                          phi=rec.phi.T, dphi=rec.dphi.T, error_count=rec.errc.T,
-                         dead=rec.dead.T, n_loop=n_loop)
+                         dead=rec.dead.T, n_loop=n_loop, exit_reason=rec.exit.T)
 
 
 def make_stream_fn(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
