@@ -194,3 +194,12 @@ class ShardedEngine:
             torch.where(live, out.viol, torch.zeros_like(out.viol)).max(),
             new_states.phi.mean())
         return new_states, out._replace(n_loop=metrics["n_loop"]), metrics
+
+
+def make_train_step_like(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
+                         mesh: ScenarioMesh | None = None, dtype=torch.float32,
+                         device="cuda") -> ShardedEngine:
+    """The full sharded step as an engine (used by
+    ``experiments.dryrun_multichip``, as the JAX package's alias is by
+    ``__graft_entry__.dryrun_multichip``)."""
+    return ShardedEngine(cfg, scfg, mesh, dtype=dtype, device=device)

@@ -1,5 +1,9 @@
 """Command-line entry points (ports of ``experiments/run_experiment.py``,
-``run_fleet.py`` and ``soak.py``).
+``run_fleet.py`` and ``soak.py``), and the ports of the JAX package's
+profiling and diagnostic probes (``profile_tick``, ``profile_solver``,
+``prof_*``, ``dump_stragglers``, ``trace_solve``, ``debug_solve``,
+``debug_f32``, ``replay_lane``, ``sweep_knobs``, ``dryrun_multichip``; what
+they share is in ``probe``).
 
     python -m boundmpc_tpu_torch.experiments.run_experiment --name experiment1
     python -m boundmpc_tpu_torch.experiments.run_fleet --batch 256 --ticks 100

@@ -66,6 +66,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--state", default="rest",
                     help="EngineState dump (npz, {'s<i>': leaf}) or 'rest'")
     ap.add_argument("--t0", type=int, default=0, help="the dump's tick (labels only)")
+    ap.add_argument("--batch", default="soak", choices=["soak", "crossing"],
+                    help="the fleet the dump belongs to: the soak's, or the dry run's "
+                         "crossing batch (dryrun_multichip --dump-each-chunk)")
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--live", default=None, help="comma-separated lanes kept live (default all)")
     ap.add_argument("--census", default=None,
@@ -131,13 +134,18 @@ def ls_solve_as(fn):
 
 def fleet(args, device, dtype):
     """(states, paths, weights, x_phi_d, pref, order, full): the soak's fleet
-    with the dumped state, the lanes outside --live dead, in the run's lane
-    order (``order[i]`` is the fleet lane at position i); ``full`` is the
-    whole fleet's dumped state as numpy leaves (no lane marked dead)."""
+    (or --batch's) with the dumped state, the lanes outside --live dead, in
+    the run's lane order (``order[i]`` is the fleet lane at position i);
+    ``full`` is the whole fleet's dumped state as numpy leaves (no lane
+    marked dead)."""
     cfg = ocp.OcpConfig()
     dump = None if args.state == "rest" else np.load(args.state)
     B = B_REST if dump is None else dump["s0"].shape[0]
-    states, paths, weights, x_phi_d = soak.build_batch(B, cfg, device, dtype)
+    if args.batch == "crossing":
+        from .dryrun_multichip import build_crossing_batch
+        states, paths, weights, x_phi_d = build_crossing_batch(B, cfg, device, dtype)
+    else:
+        states, paths, weights, x_phi_d = soak.build_batch(B, cfg, device, dtype)
     if dump is not None:
         loaded = engine.load_state_dump(states, dump)
         states = engine.EngineState(*(

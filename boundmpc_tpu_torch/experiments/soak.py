@@ -247,7 +247,11 @@ def failing_lanes(rows: list) -> list:
 def log_census(s: Series) -> None:
     """Every failing lane-tick on a ``census:`` line of its own, then one
     ``failing lanes:`` line (first failing tick, peak viol, its exit)."""
-    rows = failing_lane_ticks(s)
+    log_failing(failing_lane_ticks(s))
+
+
+def log_failing(rows: list) -> None:
+    """``log_census`` of the rows of ``failing_lane_ticks``."""
     for r in rows:
         log(f"census: lane {r['lane']} tick {r['tick']} viol {r['viol']:.9g} iters {r['iters']} "
             f"error_count {r['error_count']} exit {r['exit']}")

@@ -9,7 +9,8 @@ of another dtype, shape or layout raises.
 
 The kernel's chunk height is chosen here: ``chunk_rows(m, n)``, from the
 shared memory the kernel lays out (``smem_bytes``, the same formula as the
-kernel's).  The kernel refuses a height whose layout exceeds its limit, and
+kernel's), unless the caller names one (``check_chunk_rows``: the sizes the
+kernel has).  The kernel refuses a height whose layout exceeds its limit, and
 the wrapper raises on that.
 
 Launches are counted on the device: each launch adds one to an int64 counter
@@ -48,6 +49,19 @@ def chunk_rows(m: int, n: int) -> int:
     n1 = n + 1
     free = SMEM_LIMIT // 4 - n1 * (n1 | 1) - 16
     return min(MAX_CHUNK_ROWS, (free // n1 - 2) // 64 * 64, -(-m // 64) * 64)
+
+
+def check_chunk_rows(n: int, rc: int) -> int:
+    """``rc`` rows per chunk if the kernel takes it for n columns: a multiple
+    of 64 from 64 to MAX_CHUNK_ROWS (the kernel's fold_chunk<NR> cases)
+    whose layout fits SMEM_LIMIT; raises ValueError otherwise."""
+    if not (isinstance(rc, int) and 64 <= rc <= MAX_CHUNK_ROWS and rc % 64 == 0):
+        raise ValueError(f"rows per chunk must be a multiple of 64 from 64 to "
+                         f"{MAX_CHUNK_ROWS}, got {rc!r}")
+    if smem_bytes(n, rc) > SMEM_LIMIT:
+        raise ValueError(f"{rc} rows per chunk at n = {n} take {smem_bytes(n, rc)} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    return rc
 
 
 def serving_dtype(device, dtype=None) -> torch.dtype:
@@ -91,7 +105,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(A: torch.Tensor, b: torch.Tensor, rc: int | None = None) -> torch.Tensor:
     if A.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"ls_solve kernel takes float32, got {A.dtype} / {b.dtype}")
     if b.device != A.device:
@@ -105,6 +119,7 @@ def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m < 1 or n < 1 or n + 1 > MAX_COLS:
         raise ValueError(f"kernel takes m >= 1 and 2 <= n + 1 <= {MAX_COLS}, got m = {m}, "
                          f"n = {n}")
+    rc = chunk_rows(m, n) if rc is None else check_chunk_rows(n, rc)
     lib = _library()
     x = torch.empty((B, n), dtype=torch.float32, device=A.device)
     if B == 0:
@@ -112,7 +127,7 @@ def _launch(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.bmpc_tsqr_ls_solve_f32(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                         B, m, n, chunk_rows(m, n), stream)
+                                         B, m, n, rc, stream)
     if err != 0:
         raise RuntimeError(f"tsqr kernel launch failed: CUDA error {err}")
     _count(A.device)

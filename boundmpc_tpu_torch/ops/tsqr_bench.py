@@ -64,11 +64,11 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _inputs(shape):
+def _inputs(shape, device="cuda"):
     B, m, n = shape
     rng = np.random.default_rng(0)
-    A = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
-    b = torch.as_tensor(rng.normal(size=(B, m)).astype(np.float32), device="cuda")
+    A = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=device)
+    b = torch.as_tensor(rng.normal(size=(B, m)).astype(np.float32), device=device)
     return A, b
 
 

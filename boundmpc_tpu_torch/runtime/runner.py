@@ -107,8 +107,8 @@ def np_float(dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
 
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 

@@ -92,7 +92,24 @@ Phases (any failure exits nonzero and prints no result line):
      path region), gated on no dead lane, success >= 0.99 over live
      lane-ticks and kernel launches == loop iterations; its solves/s, max
      viol and the JAX package's own gate (success >= 0.999, max viol <
-     1e-3), which the port does not pass yet, are logged.
+     1e-3), which the port does not pass yet, are logged;
+ 15. the profiling and diagnostic probes (``boundmpc_tpu_torch.experiments``),
+     each module's ``run`` in this process: profile_tick, profile_solver and
+     prof_iter at B = PROBE_B (every component captured alone into a CUDA
+     graph, its replay equal to its eager run bit for bit; the per-component
+     table logged), prof_fixed (max_iters 1 and 10, both Jacobians),
+     prof_stream and prof_stragglers (PROBE_TICKS ticks; these three at B =
+     PROBE_STREAM_B), the dry run over an NCCL group of one (14 ticks and
+     one stream chunk, its gates), then on B =
+     PROBE_SMALL_B lanes or one dumped lane dump_stragglers, debug_f32 (its
+     dump), trace_solve, debug_solve, replay_lane and sweep_knobs, then
+     prof_tsqr at (PROBE_B, 550, 80) (every chunk size within phase 3's
+     tolerance of the plain version) and prof_batchaxis (the two layouts
+     within BATCHAXIS_TOL), and last profile_tick's trace of TRACE_TICKS
+     graphed ticks at B = PROBE_B (it must hold device time, its busy share
+     over the traced window and the traced kernel time over the same ticks'
+     untraced wall time each in (0, 1]; the top kernels and the kernels per loop iteration logged);
+     kernel launches == GN loop iterations wherever GN loops run.
 Each phase logs its seconds.  Then one JSON line describing the kernels,
 and last the device JSON line.
 """
@@ -177,6 +194,21 @@ CLI_KEYS = {
     "soak": {"soak", "success_rate", "max_viol", "n_dead", "solves_per_s", "mean_iters",
              "p99_iters", "mean_phi_final", "worst_lanes", "failure_census", "passed"},
 }
+# Phase 15: the probes.
+PROBE_B = 256
+# prof_fixed's, prof_stream's and prof_stragglers' fleet, and the last two's
+# ticks: a lockstep tick at B = 256 waits for lanes at the 256-iteration cap
+# (1.56 s a tick over 40 ticks, PERF.md PR 9), so the phase runs them at
+# B = 64; the probes' command lines measure B = 256.
+PROBE_STREAM_B, PROBE_TICKS = 64, 20
+PROBE_SMALL_B = 16  # the diagnostic probes' fleet
+TRACE_TICKS = 1  # graphed ticks under torch.profiler (about 4,100 kernels a loop iteration)
+STEP_REPLAYS = 5  # GN step replays under torch.profiler
+# prof_batchaxis: the batch-last rollout's residuals against the batch-major
+# one's, relative to the largest residual.  Both run the same float32
+# arithmetic per lane; only the layout, and so the order of a few small
+# reductions, differs: about 1e-7 relative, far below a wrong lane or index.
+BATCHAXIS_TOL = 1e-5
 OUT = Path(__file__).resolve().parent / "build" / "boundmpc_tpu_torch" / "smoke"
 
 
@@ -1106,6 +1138,192 @@ def phase_window(tsqr):
     return n
 
 
+def _probe_table(name, components):
+    """Log a probe's components; fail unless each replay equals its eager
+    run bit for bit."""
+    from boundmpc_tpu_torch.experiments import probe
+
+    for label, m in components.items():
+        log(f"probes: {name} " + probe.component_line(f"{label:20s}", m))
+        if m["equal"] is not True:
+            fail(f"probes: {name} {label}: the graph's replay differs from the eager run")
+
+
+def _gn_launches(name, n_loop, launches):
+    log(f"probes: {name}: {n_loop} GN loop iterations, {launches} kernel launches")
+    if n_loop < 1 or launches != n_loop:
+        fail(f"probes: {name}: kernel launches {launches} != GN loop iterations {n_loop}")
+
+
+def phase_probes(torch, tsqr):
+    """The probes on the card, in this process (see the docstring's phase
+    15)."""
+    from boundmpc_tpu_torch.experiments import (debug_f32, debug_solve, dryrun_multichip,
+                                                dump_stragglers, prof_batchaxis, prof_fixed,
+                                                prof_iter, prof_stragglers, prof_stream,
+                                                prof_tsqr, probe, profile_solver, profile_tick,
+                                                replay_lane, sweep_knobs, trace_solve)
+
+    device = "cuda"
+
+    def args(module, *argv):
+        return module.parser().parse_args([str(a) for a in argv])
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = fn()
+        for line in out.getvalue().splitlines():
+            log(f"probes:   | {line}")
+        log(f"probes: {name} took {time.perf_counter() - t0:.1f} s")
+        return res
+
+    t = timed("profile_tick", lambda: profile_tick.components(PROBE_B, device))
+    _probe_table("profile_tick", t["components"])
+    c = t["components"]
+    per_iter = sum(c[k]["ms"] for k in ("rc", "jacobians", "qr_solve", "linesearch"))
+    log(f"probes: profile_tick at B={PROBE_B}: rc + jacobians + qr_solve + linesearch = "
+        f"{per_iter:.3f} ms graphed (the script's GN iteration); the ls_solve kernel on "
+        f"its ({PROBE_B}, {t['m']}, {t['n']}) stack {c['ls_solve']['ms']:.4f} ms")
+
+    s = timed("profile_solver", lambda: profile_solver.components(PROBE_B, device, tick_reps=1))
+    _probe_table("profile_solver", s["components"])
+    log(f"probes: profile_solver full tick {s['tick_ms']:.2f} ms (host clock, graphed)")
+    _gn_launches("profile_solver ticks", s["warm_loop_iterations"] + s["tick_loop_iterations"],
+                 s["warm_launches"] + s["tick_launches"])
+
+    i = timed("prof_iter", lambda: prof_iter.run(args(prof_iter, "--B", PROBE_B), device))
+    _probe_table("prof_iter", i["components"])
+    _gn_launches("prof_iter warm ticks", i["warm_loop_iterations"], i["warm_launches"])
+
+    f = timed("prof_fixed", lambda: prof_fixed.run(
+        args(prof_fixed, "--B", PROBE_STREAM_B, "--iters", "1,10", "--reps", 0), device))
+    log(f"probes: prof_fixed step probe {f['probe']}")
+    for row in f["timed"]:
+        log(f"probes: prof_fixed {row}")
+    _gn_launches("prof_fixed", f["warm_loop_iterations"] + f["probe"]["loop_iterations"]
+                 + sum(r["loop_iterations"] for r in f["timed"]),
+                 f["warm_launches"] + f["probe"]["launches"] + sum(r["launches"]
+                                                                  for r in f["timed"]))
+
+    st = timed("prof_stream", lambda: prof_stream.run(
+        args(prof_stream, "--B", PROBE_STREAM_B, "--ticks", PROBE_TICKS, "--reps", 0), device))
+    for name in ("scan", "stream"):
+        r = st[name]
+        log(f"probes: prof_stream {name}: total {r['total_ms']:.1f} ms, {r['tick_ms']:.1f} ms per "
+            f"tick, {r['solves_per_s']:.1f} solves/s, success {r['success']:.5f}, max viol "
+            f"{r['max_viol']:.3e}, mean iters {r['mean_iters']:.2f}, p99 iters "
+            f"{r['p99_iters']:.0f}, loop iterations {r['loop_iterations']}")
+        _gn_launches(f"prof_stream {name}", r["loop_iterations_all"], r["launches"])
+    log(f"probes: prof_stream speedup (stream over lockstep solves/s) {st['speedup']:.3f}")
+
+    sg = timed("prof_stragglers", lambda: prof_stragglers.run(
+        args(prof_stragglers, "--B", PROBE_STREAM_B, "--ticks", PROBE_TICKS), device))
+    log(f"probes: prof_stragglers success {sg['success']}/{PROBE_STREAM_B * PROBE_TICKS}, "
+        f"lane mean iters {sg['lane_mean_iters']:.2f}, per-tick max {sg['tick_max']}, above "
+        f"{sg['above']}")
+    log(f"probes: prof_stragglers lockstep trip-count histogram {sg['histogram']}")
+    _gn_launches("prof_stragglers", sg["loop_iterations"], sg["launches"])
+
+    # The dry run's 14 ticks and its first stream chunk (to tick 34).  Its
+    # deep chunks at B = 2 fail the stream gate (0.995) by one lane-tick of
+    # 120 on the card: lane 0 at tick 68, of PR 8's class "card only" (the
+    # JAX package's float32 replays hold it, and from the card's state at
+    # that tick both packages fail it alike in float64; PERF.md PR 9).  The
+    # four-card run holds them at B = 8.
+    dr = timed("dryrun_multichip", lambda: dryrun_multichip.run(
+        args(dryrun_multichip, "--stream-chunks", 20), device))
+    log(f"probes: dryrun_multichip over a group of one: B={dr['B']}, {len(dr['ticks'])} ticks "
+        f"and {len(dr['chunks'])} stream chunks, stream success {dr['stream_success']:.4f}, "
+        f"max_sector {dr['max_sector']}; its gates held")
+    _gn_launches("dryrun_multichip", dr["loop_iterations"], dr["launches"])
+
+    small = OUT / "probe_dump.npz"
+    d = timed("dump_stragglers", lambda: dump_stragglers.run(args(
+        dump_stragglers, "--B", PROBE_SMALL_B, "--ticks", 8, "--thr", 15, "--warmup", 3,
+        "--out", small), device))
+    log(f"probes: dump_stragglers {d['dumped']}")
+    _gn_launches("dump_stragglers", d["loop_iterations"], d["launches"])
+    f32_dump = OUT / "probe_f32_t2.npz"
+    df = timed("debug_f32", lambda: debug_f32.run(args(
+        debug_f32, "--B", PROBE_SMALL_B, "--ticks", 3, "--dump", 2, "--dump-file", f32_dump),
+        device))
+    _gn_launches("debug_f32", df["loop_iterations"], df["launches"])
+    lane = 6  # the JAX scripts' scenario
+    ts = timed("trace_solve", lambda: trace_solve.run(args(
+        trace_solve, "--lane", lane, "--state", f32_dump, "--B", PROBE_SMALL_B, "--iters", 6),
+        device))
+    _gn_launches("trace_solve", ts["loop_iterations"], ts["launches"])
+    if not all(np.isfinite(list(r.values())).all() for r in ts["rows"]):
+        fail("probes: trace_solve: a non-finite trace")
+    ds = timed("debug_solve", lambda: debug_solve.run(args(
+        debug_solve, 2, lane, "--B", PROBE_SMALL_B, "--iters", 8), device,
+        env={"DBG_METHOD": "qr"}))
+    _gn_launches("debug_solve (qr)", ds["loop_iterations"], ds["launches"])
+    rl = timed("replay_lane", lambda: replay_lane.run(args(
+        replay_lane, "--lane", lane, "--state", f32_dump, "--B", PROBE_SMALL_B, "--ticks", 1),
+        device))
+    log(f"probes: replay_lane {rl['runs']}")
+    _gn_launches("replay_lane (f32, p64/s32)", rl["loop_iterations"], rl["launches"])
+    sk = timed("sweep_knobs", lambda: sweep_knobs.run(args(
+        sweep_knobs, "--B", 8, "--ticks", 3, "--combos", "carry_reg=True,tol_feas=4e-4"),
+        device))
+    log(f"probes: sweep_knobs {sk[0]}")
+    _gn_launches("sweep_knobs", sk[0]["loop_iterations"], sk[0]["launches"])
+
+    tq = timed("prof_tsqr", lambda: prof_tsqr.run(args(prof_tsqr, "--B", PROBE_B), device))
+    for r in tq["rows"]:
+        err = (r["x"] - tq["x_plain"]).abs()
+        ok = bool((err <= 2e-4 + 2e-4 * tq["x_plain"].abs()).all()) and r["finite"]
+        log(f"probes: prof_tsqr rows per chunk {r['rows']} ({r['chunks']} chunks): "
+            f"{probe.fmt_ms(r['ms'])}, max|dx| vs {tq['rows'][0]['rows']} rows "
+            f"{r['dx_first']:.3e}, vs plain {r['dx_plain']:.3e}")
+        if not ok:
+            fail(f"probes: prof_tsqr: {r['rows']} rows per chunk disagree with the plain "
+                 "version beyond phase 3's 2e-4")
+
+    ba = timed("prof_batchaxis", lambda: prof_batchaxis.run(
+        args(prof_batchaxis, "--B", PROBE_B), device))
+    _probe_table("prof_batchaxis", ba["components"])
+    rel = ba["max_dr"] / max(ba["max_r"], 1e-30)
+    log(f"probes: prof_batchaxis batch-last == batch-major: max|dr| {ba['max_dr']:.3e} "
+        f"({rel:.3e} of max|r|)")
+    if not rel <= BATCHAXIS_TOL:
+        fail(f"probes: the two layouts' residuals differ by {rel:.3e} > {BATCHAXIS_TOL}")
+    _gn_launches("prof_batchaxis warm ticks", ba["warm_loop_iterations"], ba["warm_launches"])
+    # The trace last: after a trace of ~10^5 kernels, later torch.profiler
+    # sessions in the process miss some kernels (the per-replay counts of
+    # the components above came out up to 8% low there).
+    tr = timed("profile_tick --trace",
+               lambda: profile_tick.trace_ticks(PROBE_B, None, device,
+                                                n_ticks=TRACE_TICKS,
+                                                step_replays=STEP_REPLAYS))
+    log(f"probes: trace: {tr['ticks']} graphed ticks at B={PROBE_B}, "
+        f"{tr['loop_iterations']} loop iterations, {tr['kernels']} kernels, device time "
+        f"{tr['device_time_ms']:.2f} ms (key_averages), busy share {tr['busy_share']:.4f} "
+        f"of the traced {tr['window_ms']:.2f} ms window, "
+        f"{tr['untraced_busy_share']:.4f} of the same ticks untraced "
+        f"({tr['untraced_ms']:.2f} ms); kernels per loop iteration "
+        f"{tr['kernels_per_loop_iteration']:.1f}, median {tr['step_kernel_median_us']:.2f} "
+        f"us, {tr['step_device_ms']:.3f} ms of kernel time in a "
+        f"{tr['step_replay_ms']:.3f} ms GN step replay")
+    for k in tr["top"]:
+        log(f"probes: trace top: {k['ms']:9.3f} ms {k['calls']:7d} calls  {k['name'][:100]}")
+    if not (tr["device_time_ms"] > 0 and 0 < tr["busy_share"] <= 1):
+        fail(f"probes: the trace's device time {tr['device_time_ms']} / busy share "
+             f"{tr['busy_share']} is not measured")
+    # The share the records quote: the traced ticks' kernel time over the
+    # wall time of the same ticks run again untraced (a ratio of two runs).
+    # A profiler that drops kernels reads it low; one that slows them, or
+    # an untraced run that differs from the traced one, can take it past 1.
+    if not 0 < tr["untraced_busy_share"] <= 1:
+        fail(f"probes: the untraced busy share {tr['untraced_busy_share']} is outside (0, 1]: "
+             f"{tr['kernel_ms']:.2f} ms of traced kernels over {tr['untraced_ms']:.2f} ms")
+    _gn_launches("profile_tick --trace", tr["loop_iterations"], tr["launches"])
+    log("probes: trace's own seconds: " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in tr["seconds"].items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1124,7 +1342,7 @@ def main() -> int:
 
 
 def _phases(torch, card, t_start) -> int:
-    """Phases 3-13 and the result lines."""
+    """Phases 3-15 and the result lines."""
     from boundmpc_tpu_torch import (api, batch, distributed, engine, jerkint, kinematics, ocp,
                                     parity, solver, stream as stream_mod)
     from boundmpc_tpu_torch.observability import generate_report
@@ -1164,6 +1382,10 @@ def _phases(torch, card, t_start) -> int:
         launches_cli = phase_cli(tsqr, telemetry, mpcdata, engine, batch, stream_mod, cfg, scfg)
     with clocked("phase 14"):
         launches_window = phase_window(tsqr)
+    with clocked("phase 15"):
+        tsqr.reset_launches()
+        phase_probes(torch, tsqr)
+        launches_probes = tsqr.launches()
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
@@ -1176,7 +1398,7 @@ def _phases(torch, card, t_start) -> int:
         "launches": launches, "launches_lockstep": launches_lockstep,
         "launches_single": launches_single, "launches_sharded": launches_sharded,
         "launches_qr_full": launches_qr_full, "launches_cli": launches_cli,
-        "launches_window": launches_window,
+        "launches_window": launches_window, "launches_probes": launches_probes,
         "at_cli": {"shape": [CLI_B, 550, 80], "max_abs_err": errs[(CLI_B, 550, 80)]},
         **timed[TIMED_SHAPES[0]], "at": list(TIMED_SHAPES[0]),
         "at_b1024": {"ms": timed[TIMED_SHAPES[1]]["ms"],

@@ -1,6 +1,7 @@
 """The JAX package's side of a lane replay: the soak's fleet from a dumped
 EngineState, at the window's shapes, on the CPU in float32 (the settings of
-``experiments/soak.py``: ``RUNTIME_F32``, float64 off).
+``experiments/soak.py``: ``RUNTIME_F32``, float64 off; ``--f64`` runs the
+same in float64 from the dump cast up).
 
     python tests/jax_window_replay.py --state DUMP.npz --t0 20 --ticks 20 \\
         --live 65,232,0,1 --out jax.json [--order reverse] [--drop-lane 5]
@@ -9,7 +10,8 @@ Every lane outside ``--live`` is marked dead (a dead lane skips its solve, so
 the live lanes keep the batch's shapes), the chunk runs through
 ``stream.make_stream_ticks``, and the live lanes' per-tick records go to
 ``--out`` in the layout of ``boundmpc_tpu_torch.experiments.replay_window``
-(variant "jax").  ``--order reverse`` and ``--drop-lane`` change nothing but
+(variant "jax").  ``--batch crossing`` takes the dry run's crossing batch
+instead of the soak's fleet.  ``--order reverse`` and ``--drop-lane`` change nothing but
 the batch's layout, a yardstick of the JAX package's own float32 noise (in
 chunk 0 of the window they changed no bit).  The commit cohort is B, one commit phase per tick, which changes no
 lane's numerics; B is the dump's (256 from rest).  ``--as-soak`` runs the
@@ -40,9 +42,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--state", default="rest")
     ap.add_argument("--t0", type=int, default=0)
+    ap.add_argument("--batch", default="soak", choices=["soak", "crossing"],
+                    help="the soak's fleet, or the dry run's crossing batch "
+                         "(__graft_entry__._build_crossing_batch)")
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--live", default=None)
     ap.add_argument("--order", default="identity", choices=["identity", "reverse"])
+    ap.add_argument("--f64", action="store_true",
+                    help="float64 (x64 on), the dumped float32 state cast up, as "
+                         "replay_window's cpu-f64 variant")
     ap.add_argument("--drop-lane", type=int, default=None)
     ap.add_argument("--subset", action="store_true")
     ap.add_argument("--as-soak", action="store_true",
@@ -82,14 +90,19 @@ def run_one(args):
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     from boundmpc_tpu import batch, engine, ocp, solver, stream
-    from __graft_entry__ import _build_batch
+    from __graft_entry__ import _build_batch, _build_crossing_batch
 
+    if args.f64:
+        jax.config.update("jax_enable_x64", True)
+    dtype = jnp.float64 if args.f64 else jnp.float32
     cfg = ocp.OcpConfig()
     dump = None if args.state == "rest" else np.load(args.state)
     B = 256 if dump is None else dump["s0"].shape[0]
-    states, paths, weights, x_phi_d = _build_batch(B, cfg)
+    build = _build_crossing_batch if args.batch == "crossing" else _build_batch
+    states, paths, weights, x_phi_d = build(B, cfg, dtype=dtype)
     if dump is not None:
-        states = engine.load_state_dump(states, dump)
+        states = jax.tree.map(lambda t, x: jnp.asarray(x, t.dtype), states,
+                              engine.load_state_dump(states, dump))
     full = [np.array(leaf) for leaf in jax.tree.leaves(states)]  # for --states-out
     if args.live:
         live = np.zeros(B, bool)
@@ -107,12 +120,12 @@ def run_one(args):
     take = lambda tree: jax.tree.map(lambda a: jnp.asarray(np.asarray(a)[order]), tree)  # noqa
     states, paths, weights, x_phi_d = (take(x) for x in (states, paths, weights, x_phi_d))
     B = len(order)
-    pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d)
+    pref = batch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=dtype)
     # cohort B: one commit phase per tick; the soak's own cohort under --as-soak
     key = (args.ticks, None if args.as_soak else B)
     if key not in _RUNS:
-        _RUNS[key] = stream.make_stream_ticks(cfg, solver.RUNTIME_F32, args.ticks, donate=False,
-                                              cohort=key[1])
+        _RUNS[key] = stream.make_stream_ticks(cfg, solver.RUNTIME_F32, args.ticks, dtype=dtype,
+                                              donate=False, cohort=key[1])
     run = _RUNS[key]
     t0 = time.perf_counter()
     states, out = run(states, paths, weights, x_phi_d, pref)
@@ -136,7 +149,7 @@ def run_one(args):
                 "iters": int(iters[t, c]), "error_count": int(errc[t, c]), "exit": "-"}
                for ln, c in zip(lanes, cols) for t in range(succ.shape[0])
                if live_t[t, c] and not succ[t, c]]
-    rec = {"variant": "jax", "device": "cpu", "dtype": "float32", "B": B, "order": args.order,
+    rec = {"variant": "jax", "device": "cpu", "dtype": "float64" if args.f64 else "float32", "B": B, "order": args.order,
            "t0": args.t0, "ticks": int(succ.shape[0]), "lanes": lanes,
            "success": succ[:, cols].tolist(), "viol": viol[:, cols].astype(float).tolist(),
            "iters": iters[:, cols].astype(int).tolist(),
