@@ -10,6 +10,8 @@ noise: the first step agrees to 1e-8, later steps take a few iterations
 more or less and agree to 1e-5 (the JAX package's own structured and AD
 Jacobians differ by 2.8e-6 on the same ticks).
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,8 @@ from boundmpc_tpu import kinematics as jkin
 from boundmpc_tpu.api import BoundMPC as JaxMPC, MPCParams as JaxParams
 from boundmpc_tpu.runtime import scenarios as jscen
 from boundmpc_tpu_torch.api import BoundMPC, MPCParams
+from torch_shared import shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 STEPS = 2
 TOL_FIRST, TOL = 1e-8, 1e-5
@@ -86,8 +90,8 @@ def _replan(mpc, plant, params=None):
                                       np.array([mpc.phi_max[0], 0, 0]), jerk)
 
 
-@pytest.fixture(scope="module")
-def facades():
+def _facades():
+    """Each facade's steps, replan and state after them, as numpy."""
     out = {}
     for pkg in ("jax", "port"):
         mpc = _mpc(pkg, jscen.experiment1())
@@ -95,9 +99,17 @@ def facades():
         pr_ref_first = np.array(mpc._state.pr_ref).reshape(3)
         more, plant = _drive_from(mpc, first[0], STEPS - 1)
         phi_upd, replanned = _replan(mpc, plant)
-        out[pkg] = dict(mpc=mpc, steps=first + more, pr_ref_first=pr_ref_first,
-                        phi_upd=phi_upd, replanned=replanned)
+        state = dict(error_count=mpc.error_count, phi_current=mpc.phi_current)
+        if pkg == "port":  # the JAX facade has no success flag
+            state["success"] = mpc.success
+        out[pkg] = dict(steps=first + more, pr_ref_first=pr_ref_first,
+                        phi_upd=phi_upd, replanned=replanned, mpc=SimpleNamespace(**state))
     return out
+
+
+@pytest.fixture(scope="module")
+def facades():
+    return shared("test_torch_api.facades", _facades)
 
 
 def _assert_step(got, want, tol):

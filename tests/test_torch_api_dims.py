@@ -8,6 +8,7 @@ from boundmpc_tpu.runtime import scenarios as jscen
 from boundmpc_tpu_torch import solver as tsol
 from boundmpc_tpu_torch.api import MPCParams
 from test_torch_api import TOL_FIRST, TRAJ_KEYS, _assert_step, _drive, _measure, _mpc
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 
 def test_update_with_new_dims_rebuilds_solver():

@@ -10,6 +10,7 @@ from boundmpc_tpu_torch import kinematics as tkin, solver as tsol
 from boundmpc_tpu_torch.api import BoundMPC, MPCParams
 from boundmpc_tpu_torch.runtime import ClosedLoopRunner, default_path
 from test_torch_api import _assert_step, _drive, _measure, _mpc
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 
 def test_update_shrinks_the_horizon():

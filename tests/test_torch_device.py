@@ -9,6 +9,7 @@ from boundmpc_tpu_torch import api, batch, convert, ocp, parity, solver, stream
 from boundmpc_tpu_torch.ops.tsqr import serving_dtype
 from boundmpc_tpu_torch.runtime import (ClosedLoopRunner, FleetRunner, default_path,
                                         experiment1)
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 ENTRY_POINTS = {
     "stream.make_stream_fn": stream.make_stream_fn,

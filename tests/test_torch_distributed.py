@@ -3,7 +3,9 @@ the JAX package's, in float64 on the CPU.
 
 The port runs as torch.distributed ranks over gloo, one subprocess each
 (the port only, one thread each); the JAX package's ``ShardedEngine`` runs
-meanwhile on two of eight virtual CPU devices, in a subprocess of its own.
+meanwhile on two of eight virtual CPU devices, in a subprocess of its own
+(one core, ``torch_shared.one_core_env``).  The fixture runs once per test
+run (``torch_shared.shared``).
 Both get the same B = 4 fleet (built by the JAX package, carried across as
 numpy), one ``tick`` and a 3-tick ``stream``.  In float64 both take the same iteration
 paths (see test_torch_stream.py), so the states agree to 1e-8, the integer
@@ -25,6 +27,8 @@ from boundmpc_tpu import engine as jeng, solver as jsol, stream as jstream
 from boundmpc_tpu.runtime import scenarios as jscen
 from boundmpc_tpu.runtime.fleet import FleetRunner
 from boundmpc_tpu_torch import distributed, ocp as tocp, solver as tsol
+from torch_shared import one_core_env, shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, K = 4, 3
@@ -178,12 +182,10 @@ def _jax_results(d):
     return (state("tick"), None, metrics("tick")), (state("stream"), so, metrics("stream"))
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _runs(tmp):
     """(JAX tick, JAX stream, port ranks of the group of two, port group of
     one): each JAX result (states, outputs, metrics) as numpy, each port
     rank as (metrics line, arrays)."""
-    tmp = tmp_path_factory.mktemp("dist")
     rng = np.random.default_rng(0)
     scs = [jscen.experiment1()] + [jscen.random_scenario(rng) for _ in range(B - 1)]
     f = FleetRunner(scs, solver_cfg=jsol.RUNTIME_F32, dtype=jnp.float64)
@@ -192,14 +194,14 @@ def runs(tmp_path_factory):
     np.savez(tmp / "inputs.npz", weights=np.asarray(f.weights), x_phi_d=np.asarray(f.x_phi_d),
              K=K, N=f.cfg.N, nr_segs=f.cfg.nr_segs, dt=f.cfg.dt, **arrays)
 
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
-               WORLD_SIZE="2", OMP_NUM_THREADS="1")
+    env = one_core_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
+                       WORLD_SIZE="2")
     procs = [_start(tmp, f"rank{r}", "env", dict(env, RANK=str(r), LOCAL_RANK=str(r)))
              for r in range(2)]
     env1 = {k: v for k, v in env.items() if k not in ("MASTER_ADDR", "MASTER_PORT",
                                                        "WORLD_SIZE")}
     procs.append(_start(tmp, "single", f"127.0.0.1:{distributed.free_port()}", env1))
-    jax_env = dict(os.environ, XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} {JAX_XLA_FLAGS}")
+    jax_env = one_core_env(XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} {JAX_XLA_FLAGS}")
     jax_proc = subprocess.Popen([sys.executable, "-c", JAX_ENGINE, str(tmp / "inputs.npz"),
                                  str(tmp / "jax.npz")], cwd=str(ROOT), env=jax_env,
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -210,6 +212,11 @@ def runs(tmp_path_factory):
     assert rc == 0, stderr[-4000:]
     tick, stream = _jax_results(dict(np.load(tmp / "jax.npz")))
     return tick, stream, ranks[:2], ranks[2]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return shared("test_torch_distributed.runs", lambda: _runs(tmp_path_factory.mktemp("dist")))
 
 
 def _cat(ranks, key, axis=0):

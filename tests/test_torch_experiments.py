@@ -12,7 +12,6 @@ test's temporary directory.
 """
 import importlib.util
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +28,8 @@ from boundmpc_tpu_torch import distributed, engine as teng, ocp as tocp
 from boundmpc_tpu_torch.experiments import run_experiment, run_fleet, soak
 from boundmpc_tpu_torch.native.telemetry import read_log
 from boundmpc_tpu_torch.runtime import FleetRunner, mpcdata
+from torch_shared import one_core_env
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 # Hang protection only: a JAX script that takes 2 minutes alone took over
@@ -51,11 +52,12 @@ LAUNCH = ("import runpy, sys\n"
 
 
 def _start_jax(script, args, tmp, env=None):
+    """A JAX script in a subprocess, at one core unless ``env`` is given."""
     cmd = [sys.executable, str(ROOT / "experiments" / script), *map(str, args)]
     if script != "run_experiment.py":
         cmd[1:2] = ["-c", LAUNCH, str(tmp / "xla_cache"), cmd[1]]
-    return subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return subprocess.Popen(cmd, cwd=str(ROOT), env=env or one_core_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def _finish(proc, rc=0):
@@ -350,8 +352,8 @@ JAX_SHARDED_XLA_FLAGS = ("--xla_force_host_platform_device_count=8 "
 
 def _start_ranks(argv, dtype):
     """--sharded as two gloo ranks from torchrun's environment."""
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
-               WORLD_SIZE="2", OMP_NUM_THREADS="1")
+    env = one_core_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()),
+                       WORLD_SIZE="2")
     return [subprocess.Popen([sys.executable, "-c", SHARDED_RANK, dtype, *map(str, argv)],
                              cwd=str(ROOT), env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -394,7 +396,7 @@ def test_run_fleet_sharded_matches_jax_script(tmp_path, executor, ticks):
     processes its own; violation and progress behaviourally."""
     argv = ["--cpu", "--sharded", "--batch", 8, "--ticks", ticks, "--executor", executor]
     proc = _start_jax("run_fleet.py", argv, tmp_path,
-                      env=dict(os.environ, XLA_FLAGS=JAX_SHARDED_XLA_FLAGS))
+                      env=one_core_env(XLA_FLAGS=JAX_SHARDED_XLA_FLAGS))
     procs = _start_ranks(argv, "float32")
     try:
         lines = [_finish(p)[0] for p in procs]
@@ -440,6 +442,6 @@ def test_soak_module_entry_point_without_a_card():
         pytest.skip("a CUDA device is present: the soak runs on it")
     out = subprocess.run([sys.executable, "-m", "boundmpc_tpu_torch.experiments.soak",
                           "--B", "2", "--ticks", "1"], cwd=str(ROOT), capture_output=True,
-                         text=True, timeout=SCRIPT_TIMEOUT)
+                         text=True, timeout=SCRIPT_TIMEOUT, env=one_core_env())
     assert out.returncode != 0 and not out.stdout.strip()
     assert "no CUDA device" in out.stderr

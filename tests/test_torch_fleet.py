@@ -20,6 +20,8 @@ from boundmpc_tpu.runtime import experiment1 as jexp1, random_scenario as jrand
 from boundmpc_tpu_torch import engine as teng, solver as tsol
 from boundmpc_tpu_torch.runtime import FleetRunner, experiment1, random_scenario
 from boundmpc_tpu_torch.runtime.fleet import TELEMETRY_FIELDS
+from torch_shared import read_files, shared, write_files
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 B, TICKS = 4, 2
 TOL = 1e-8
@@ -42,17 +44,21 @@ def _jax_fleet(**kw):
 
 def _assert_states(port, jax_states, tol=TOL):
     for name in jax_states._fields:
-        np.testing.assert_allclose(getattr(port, name).double().numpy(),
+        np.testing.assert_allclose(np.asarray(getattr(port, name), np.float64),
                                    np.asarray(getattr(jax_states, name), np.float64),
                                    rtol=0, atol=tol, err_msg=f"EngineState.{name}")
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _same(a, b):
+    """torch.equal of two leaves, either a tensor or a numpy array."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _runs(d):
     """Both packages: TICKS lockstep ticks with telemetry, then a checkpoint.
     The port's fleet then runs one more tick, and a new port fleet loads the
-    checkpoint and runs one tick."""
-    d = tmp_path_factory.mktemp("fleet")
+    checkpoint and runs one tick.  The states, the stats and the files."""
     out = {}
     for pkg, make in (("jax", _jax_fleet), ("port", _port_fleet)):
         f = make(telemetry_path=str(d / f"{pkg}_run.bin"))
@@ -65,7 +71,15 @@ def runs(tmp_path_factory):
     resumed.load_checkpoint(str(d / "port.npz"))
     resumed.run(ticks=1)
     out["port"].update(continued=f.states, resumed=resumed.states)
-    return d, out
+    return out, read_files(d)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """``_runs``, built once per run; its files written in this worker."""
+    out, files = shared("test_torch_fleet.runs",
+                        lambda: _runs(tmp_path_factory.mktemp("fleet_build")))
+    return write_files(tmp_path_factory.mktemp("fleet"), files), out
 
 
 def test_fleet_matches_jax(runs):
@@ -88,7 +102,7 @@ def test_checkpoint_resume_deterministic(runs):
     _, out = runs
     a, b = out["port"]["continued"], out["port"]["resumed"]
     for name in a._fields:
-        assert torch.equal(getattr(a, name), getattr(b, name)), name
+        assert _same(getattr(a, name), getattr(b, name)), name
 
 
 def test_jax_checkpoint_loads_into_the_port(runs):
@@ -97,7 +111,7 @@ def test_jax_checkpoint_loads_into_the_port(runs):
     f.load_checkpoint(str(d / "jax.npz"))
     _assert_states(f.states, out["jax"]["states"], tol=0)
     for name in f.states._fields:
-        assert getattr(f.states, name).dtype == getattr(out["port"]["states"], name).dtype
+        assert getattr(f.states, name).numpy().dtype == getattr(out["port"]["states"], name).dtype
 
 
 def test_port_checkpoint_loads_into_jax(runs):
@@ -119,7 +133,7 @@ def test_short_dump_pads_trailing_fields(runs):
     st_j = jeng.load_state_dump(_jax_fleet().states, np.load(d / "short.npz"))
     for i, name in enumerate(tpl_t._fields):
         want = getattr(out["port"]["states"] if i < 16 else tpl_t, name)
-        assert torch.equal(getattr(st_t, name), want), name
+        assert _same(getattr(st_t, name), want), name
     _assert_states(st_t, st_j, tol=0)
 
 

@@ -31,6 +31,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from boundmpc_tpu_torch import batch, graphs, ocp, solver, stream
 from boundmpc_tpu_torch.runtime import build_fleet
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 FORBIDDEN = {"aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
              "aten.lift_fresh", "aten._linalg_check_errors"}

@@ -15,6 +15,7 @@ import torch
 from boundmpc_tpu_torch import batch, graphs, ocp, solver, stream
 from boundmpc_tpu_torch._tree import tree_map
 from boundmpc_tpu_torch.runtime import build_fleet
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 B = 2
 CFG = ocp.OcpConfig()

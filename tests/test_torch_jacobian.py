@@ -23,6 +23,8 @@ from boundmpc_tpu.runtime.scenarios import experiment1, experiment2
 from boundmpc_tpu_torch import convert, jacobian as tjac, jerkint as tjerk
 from boundmpc_tpu_torch import kinematics as tkin, ocp as tocp, solver as tsol
 from boundmpc_tpu_torch._tree import tree_map
+from torch_shared import shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 TOL = 1e-10
 STEP_TOL = 1e-8
@@ -60,6 +62,11 @@ def _jax_structured_fn(view):
 
 @functools.lru_cache(maxsize=None)
 def _jax_case(case):
+    """``_run_jax_case``, run once per test run (``torch_shared.shared``)."""
+    return shared(f"test_torch_jacobian.jax_case_{case}", lambda: _run_jax_case(case))
+
+
+def _run_jax_case(case):
     """(ctx, loop states of N_STEPS JAX GN steps under SolverConfig()) as numpy."""
     scfg = jsol.SolverConfig()
     co = jjerk.coeff_matrices(CFG_J.N, CFG_J.dt, dtype=jnp.float64)
@@ -93,6 +100,12 @@ def _u(case, seed):
 
 @functools.lru_cache(maxsize=None)
 def _jax_structured(case, view, seed):
+    """``_run_jax_structured``, run once per test run (``torch_shared.shared``)."""
+    return shared(f"test_torch_jacobian.jax_structured_{case}_{view}_{seed}",
+                  lambda: _run_jax_structured(case, view, seed))
+
+
+def _run_jax_structured(case, view, seed):
     ctx, _ = _jax_case(case)
     params = jax.tree.map(jnp.asarray, ctx.params)
     u = jnp.asarray(_u(case, seed).reshape(CFG_J.N, 8))

@@ -13,6 +13,7 @@ from torch.func import vmap
 
 from boundmpc_tpu import bounds as jbounds, jerkint as jjerk, kinematics as jkin, lie as jlie
 from boundmpc_tpu_torch import bounds as tbounds, jerkint as tjerk, kinematics as tkin, lie as tlie
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 TOL = 1e-12
 

@@ -17,6 +17,7 @@ from boundmpc_tpu import ocp as jocp, path as jpath
 from boundmpc_tpu.runtime.scenarios import experiment1, experiment2, random_scenario
 from boundmpc_tpu_torch import convert, engine as teng, jerkint as tjerk
 from boundmpc_tpu_torch import kinematics as tkin, ocp as tocp, path as tpath
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 TOL = 1e-10
 CFG_J = jocp.OcpConfig()

@@ -28,6 +28,7 @@ from boundmpc_tpu_torch.parity import (OracleSolver, RefNlpSolver, oracle_runner
                                        ref_nlp_runner)
 from boundmpc_tpu_torch.runtime import ClosedLoopRunner
 from boundmpc_tpu_torch.runtime import scenarios as tscen
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 FN_TOL = 1e-10
 SOLVE_TOL = 1e-8

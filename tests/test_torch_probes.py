@@ -49,6 +49,8 @@ from boundmpc_tpu_torch.experiments import (debug_f32, debug_solve, dryrun_multi
                                             probe, profile_solver, profile_tick, replay_lane,
                                             soak, sweep_knobs, trace_solve)
 from boundmpc_tpu_torch.ops import tsqr
+from torch_shared import one_core_env, shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-8
@@ -122,9 +124,20 @@ def _jparams(cfg, states, paths, weights, x_phi_d):
         states, paths, weights, x_phi_d)
 
 
+# The most lockstep ticks any test reads at each B: a test that reads fewer
+# takes the first of them (the same tick function on the same inputs).
+JTICKS = {2: 2, 3: 4}
+
+
 def _jticks(B, ticks):
     """The JAX package's lockstep ticks on the soak's fleet (float64,
-    RUNTIME_F32): the pre-tick states and the TickOuts."""
+    RUNTIME_F32): the pre-tick states and the TickOuts, as numpy; run once
+    per test run for JTICKS[B] ticks."""
+    pre, outs = shared(f"test_torch_probes.jticks_B{B}", lambda: _run_jticks(B, JTICKS[B]))
+    return pre[:ticks + 1], outs[:ticks]
+
+
+def _run_jticks(B, ticks):
     cfg = jocp.OcpConfig()
     st, paths, weights, x_phi_d = _jax_batch(B)
     pref = jbatch.make_prefactor_batch(cfg, paths, weights, x_phi_d, dtype=jnp.float64)
@@ -196,7 +209,9 @@ def test_profile_tick_components_match_jax():
 
 @pytest.fixture
 def solver_components():
-    return profile_solver.components(2, "cpu", F64, warm_ticks=1)
+    """The probe's components, built once per run (``torch_shared.shared``)."""
+    return shared("test_torch_probes.solver_components",
+                  lambda: profile_solver.components(2, "cpu", F64, warm_ticks=1))
 
 
 def test_profile_solver_components_match_jax(solver_components):
@@ -446,7 +461,8 @@ def test_dryrun_two_gloo_ranks_meets_the_gates():
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
          "-m", "boundmpc_tpu_torch.experiments.dryrun_multichip", "--platform", "cpu",
          "--ticks", "8", "--stream-chunks", ""],
-        cwd=str(ROOT), capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
+        cwd=str(ROOT), capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT,
+        env=one_core_env())
     assert out.returncode == 0, out.stderr[-4000:]
     ticks = re.findall(r"dryrun_multichip\(2\) tick (\d+): success (\d+)/4", out.stdout)
     assert [int(t) for t, _ in ticks] == list(range(8))
@@ -589,7 +605,8 @@ def test_trace_solve_f64_matches_jax_script(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-c", WIDE_RUN, str(ROOT / "experiments" / "trace_solve.py"), str(wide)]
         + [str(a) for a in argv] + ["--platform", "cpu", "--f64"],
-        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=one_core_env())
     port = trace_solve.run(_args(trace_solve, argv + ["--platform", "cpu", "--f64"]), "cpu")
     out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT)
     assert proc.returncode == 0, err[-4000:]
@@ -891,6 +908,6 @@ def test_probe_module_entry_point_without_a_card():
         pytest.skip("a CUDA device is present: the probe runs on it")
     out = subprocess.run([sys.executable, "-m", "boundmpc_tpu_torch.experiments.prof_stragglers",
                           "--B", "2", "--ticks", "1"], cwd=str(ROOT), capture_output=True,
-                         text=True, timeout=SUBPROCESS_TIMEOUT)
+                         text=True, timeout=SUBPROCESS_TIMEOUT, env=one_core_env())
     assert out.returncode == 2 and not out.stdout.strip()
     assert "no CUDA device" in out.stderr

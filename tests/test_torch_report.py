@@ -7,6 +7,7 @@ states (forward kinematics, bound envelopes, error projections, the
 Jacobian's conditioning), so every npz array agrees to 1e-10.  Without
 figures the port's report needs no matplotlib.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -21,6 +22,8 @@ from boundmpc_tpu.runtime import ClosedLoopRunner as JaxRunner
 from boundmpc_tpu.runtime import scenarios as jscen
 from boundmpc_tpu_torch import convert, ocp as tocp
 from boundmpc_tpu_torch.observability import generate_report
+from torch_shared import one_core_env, read_files, shared, write_files
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-10
@@ -54,9 +57,8 @@ else:
 """
 
 
-@pytest.fixture(scope="module")
-def reports(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("report")
+def _reports(tmp):
+    """Both reports of one JAX RunLog, the inputs of NO_MPL and the files."""
     r = JaxRunner(jscen.experiment1())
     log = r.run(max_ticks=TICKS)
     rep_j = jax_report(log, r, str(tmp / "jax"), tail="t")
@@ -68,7 +70,24 @@ def reports(tmp_path_factory):
     np.savez(tmp / "inputs.npz", phi_max=r.phi_max,
              **{f"log.{k}": v for k, v in log.arrays().items()},
              **{f"path.{k}": v for k, v in path_np.items()})
-    return rep_j, rep_t, tmp
+    return rep_j, rep_t, str(tmp), read_files(tmp)
+
+
+def _moved(rep, old, new):
+    """A report whose files under ``old`` now lie under ``new``."""
+    def move(p):
+        return str(new / Path(p).relative_to(old))
+    return dataclasses.replace(rep, outdir=move(rep.outdir), npz_path=move(rep.npz_path),
+                               figures={k: move(v) for k, v in rep.figures.items()})
+
+
+@pytest.fixture(scope="module")
+def reports(tmp_path_factory):
+    """``_reports``, built once per run; its files written in this worker."""
+    rep_j, rep_t, built_in, files = shared(
+        "test_torch_report.reports", lambda: _reports(tmp_path_factory.mktemp("report_build")))
+    tmp = write_files(tmp_path_factory.mktemp("report"), files)
+    return _moved(rep_j, built_in, tmp), _moved(rep_t, built_in, tmp), tmp
 
 
 def _same_npz(a, b):
@@ -111,6 +130,6 @@ def test_report_without_matplotlib(reports):
     _, rep_t, tmp = reports
     out = subprocess.run([sys.executable, "-c", NO_MPL, str(tmp / "inputs.npz"),
                           str(tmp / "nompl")], capture_output=True, text=True, timeout=120,
-                         cwd=str(ROOT))
+                         cwd=str(ROOT), env=one_core_env())
     assert out.returncode == 0, out.stderr[-4000:]
     _same_npz(rep_t.npz_path, out.stdout.strip().splitlines()[-1])

@@ -12,6 +12,7 @@ of experiment1, so that preset is compared tick by tick in
 test_torch_api.py instead.
 """
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,16 +30,19 @@ from boundmpc_tpu_torch import solver as tsol
 from boundmpc_tpu_torch.observability import horizon as thor
 from boundmpc_tpu_torch.runtime import ClosedLoopRunner, RunLog
 from boundmpc_tpu_torch.runtime import scenarios as tscen
+from torch_shared import shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 TOL = 1e-8
 TICKS, REPLAN_TICKS = 2, 2
 TIMERS = ("t_comp", "t_loop", "t_overhead")
 
 
-@pytest.fixture(scope="module")
-def loops():
-    """(JAX runner, its logs, port runner, its logs): TICKS of experiment1,
-    a replan onto experiment2, REPLAN_TICKS more."""
+def _loops():
+    """TICKS of experiment1, a replan onto experiment2, REPLAN_TICKS more, in
+    each package: each package's RunLog arrays of both parts and its runner's
+    phi_max and final state; the JAX state before the replan and each
+    package's after it."""
     j = JaxRunner(jscen.experiment1(), solver_cfg=jsol.RUNTIME_F32._replace(jac="structured"))
     t = ClosedLoopRunner(tscen.experiment1(),
                          solver_cfg=tsol.RUNTIME_F32._replace(jac="structured"),
@@ -50,15 +54,24 @@ def loops():
     replanned = (jax.tree.map(np.asarray, j.state), convert.to_numpy(t.state))
     logs_j.append(j.run(max_ticks=REPLAN_TICKS))
     logs_t.append(t.run(max_ticks=REPLAN_TICKS))
-    return j, logs_j, t, logs_t, pre_replan, replanned
+    def runner(r, logs):
+        return SimpleNamespace(phi_max=r.phi_max, state=r.state,
+                               logs=[log.arrays() for log in logs])
+    return runner(j, logs_j), runner(t, logs_t), pre_replan, replanned
+
+
+@pytest.fixture(scope="module")
+def loops():
+    """``_loops``, built once per run."""
+    return shared("test_torch_runner.loops", _loops)
 
 
 @pytest.mark.parametrize("part", [0, 1], ids=["experiment1", "after_replan"])
 def test_runlog_matches_jax(loops, part):
-    _, logs_j, _, logs_t, _, _ = loops
-    a_j = logs_j[part].arrays()
+    j, t, _, _ = loops
+    a_j = j.logs[part]
     # The JAX RunLog carried across, series by series.
-    a_t = convert.from_numpy("RunLog", logs_t[part].arrays()).arrays()
+    a_t = convert.from_numpy("RunLog", t.logs[part]).arrays()
     assert a_t.keys() == a_j.keys()
     assert len(a_t["phi"]) == (TICKS if part == 0 else REPLAN_TICKS)
     for key in a_j:
@@ -70,7 +83,7 @@ def test_runlog_matches_jax(loops, part):
 
 
 def test_replan_reanchors_like_jax(loops):
-    j, _, t, _, _, (st_j, st_t) = loops
+    j, t, _, (st_j, st_t) = loops
     for name in st_j._fields:
         np.testing.assert_allclose(np.asarray(st_t[name], np.float64)[0],
                                    np.asarray(getattr(st_j, name), np.float64),
@@ -98,7 +111,7 @@ def test_replan_state_matches_jax(loops, sense):
     along (forward) or against (opposing) the current motion."""
     from scipy.spatial.transform import Rotation as R
     from boundmpc_tpu import kinematics as jkin
-    _, _, _, _, st_np, _ = loops
+    _, _, st_np, _ = loops
     q = jnp.asarray(st_np.q)
     pose = np.array(jkin.fk_pose(q))
     v = np.asarray(jkin.jacobian(q)) @ st_np.dq
@@ -124,6 +137,11 @@ def test_replan_state_matches_jax(loops, sense):
 
 @functools.lru_cache(maxsize=None)
 def _jax_presolve(case):
+    """``_run_jax_presolve``, run once per test run (``torch_shared.shared``)."""
+    return shared(f"test_torch_runner.jax_presolve_{case}", lambda: _run_jax_presolve(case))
+
+
+def _run_jax_presolve(case):
     cfg, scfg = jocp.OcpConfig(), jsol.SolverConfig()
     co = jjerk.coeff_matrices(cfg.N, cfg.dt, dtype=jnp.float64)
     from boundmpc_tpu import kinematics as jkin

@@ -22,6 +22,8 @@ from boundmpc_tpu_torch import convert, jacobian as tjac, jerkint as tjerk
 from boundmpc_tpu_torch import kinematics as tkin, ocp as tocp, solver as tsol
 from boundmpc_tpu_torch._tree import tree_map
 from boundmpc_tpu_torch.ops import tsqr
+from torch_shared import shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 TOL = 1e-9
 CFG_J, CFG_T = jocp.OcpConfig(), tocp.OcpConfig()
@@ -56,6 +58,11 @@ def _moving_state(sc, path):
 
 @functools.lru_cache(maxsize=None)
 def _jax_trajectory(case):
+    """``_run_jax_trajectory``, run once per test run (``torch_shared.shared``)."""
+    return shared(f"test_torch_solver.jax_trajectory_{case}", lambda: _run_jax_trajectory(case))
+
+
+def _run_jax_trajectory(case):
     """JAX presolve -> ctx -> N_STEPS iterates (numpy) for one case."""
     co, lim, step, _, pre = _jax_fns()
     sc = experiment1() if case == "exp1_cold" else experiment2()

@@ -21,6 +21,8 @@ from boundmpc_tpu.runtime import scenarios as jscen
 from boundmpc_tpu_torch import batch as tbatch, convert, ocp as tocp
 from boundmpc_tpu_torch import solver as tsol, stream as tstream
 from boundmpc_tpu_torch.runtime import build_fleet, scenarios as tscen
+from torch_shared import one_core_env, shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 B, K = 3, 4
 
@@ -54,11 +56,27 @@ def run_port_stream(inputs, dtype, cohort=None):
     return fn(*inputs)
 
 
-@pytest.fixture(scope="module")
-def f64_runs():
+def _f64_runs():
     f = jax_fleet(jnp.float64)
     inputs = port_inputs(f, torch.float64)
     return run_jax_stream(f, jnp.float64), run_port_stream(inputs, torch.float64), inputs
+
+
+def _tensors(tree):
+    """A numpy record's arrays as tensors, its named tuples kept."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*map(_tensors, tree))
+    if isinstance(tree, tuple):
+        return tuple(map(_tensors, tree))
+    return torch.from_numpy(tree)
+
+
+@pytest.fixture(scope="module")
+def f64_runs():
+    """(JAX stream, port stream, port inputs), built once per run; the
+    inputs as tensors again."""
+    jax_run, port_run, inputs = shared("test_torch_stream.f64_runs", _f64_runs)
+    return jax_run, port_run, _tensors(inputs)
 
 
 def _assert_same_run(succ_a, iters_a, viol_a, st_a, succ_b, iters_b, viol_b, st_b):
@@ -160,5 +178,6 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
+                         timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]),
+                         env=one_core_env())
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from test_torch_stream import jax_fleet, port_inputs, run_jax_stream, run_port_stream
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 
 def test_stream_matches_jax_stream_f32_behavioral():

@@ -1,5 +1,7 @@
 """The port's native telemetry sink and MPCData log, against the JAX
 package's: the same round trips, and each package reads the other's file."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +11,8 @@ from boundmpc_tpu.runtime import mpcdata as jmpc
 from boundmpc_tpu_torch import ocp, solver
 from boundmpc_tpu_torch.native import telemetry as ttel
 from boundmpc_tpu_torch.runtime import FleetRunner, experiment1, mpcdata, random_scenario
+from torch_shared import read_files, shared, write_files
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 FIELDS = ["t", "phi", "viol", "iters", "q0"]
 
@@ -78,14 +82,23 @@ def test_mpcdata_schema_matches_jax():
         assert mpcdata.field_names(cfg_t) == jmpc.field_names(cfg_j)
 
 
-@pytest.fixture(scope="module")
-def mpc_log(tmp_path_factory):
+def _mpc_log(d):
+    """The port fleet's MPCData log (as bytes), its stats and final states."""
     rng = np.random.default_rng(5)
     scs = [experiment1(), random_scenario(rng)]
-    path = str(tmp_path_factory.mktemp("mpc") / "mpcdata.bin")
+    path = str(d / "mpcdata.bin")
     f = FleetRunner(scs, solver_cfg=solver.RUNTIME_F32, mpcdata_path=path, device="cpu")
     stats = f.run(ticks=3)
     f.close()
+    return read_files(d), stats, SimpleNamespace(states=f.states)
+
+
+@pytest.fixture(scope="module")
+def mpc_log(tmp_path_factory):
+    """``_mpc_log``, built once per run; the log written in this worker."""
+    files, stats, f = shared("test_torch_telemetry.mpc_log",
+                             lambda: _mpc_log(tmp_path_factory.mktemp("mpc_build")))
+    path = str(write_files(tmp_path_factory.mktemp("mpc"), files) / "mpcdata.bin")
     return path, stats, f
 
 
@@ -104,8 +117,8 @@ def test_mpcdata_roundtrip(mpc_log):
     assert (np.diff(d["hphi"], axis=1) > -1e-6).all()
     # The last tick's post-tick state is the runner's.
     last = d["tick"] == T - 1
-    np.testing.assert_array_equal(d["phi"][last], f.states.phi.numpy())
-    np.testing.assert_array_equal(d["q"][last], f.states.q.numpy())
+    np.testing.assert_array_equal(d["phi"][last], f.states.phi)
+    np.testing.assert_array_equal(d["q"][last], f.states.q)
 
     log = mpcdata.runlog_from_telemetry(path, cfg, scenario=0)
     assert len(log.phi) == T
@@ -129,15 +142,21 @@ def test_jax_reads_the_port_mpcdata(mpc_log):
         np.testing.assert_array_equal(a_t[k], a_j[k], err_msg=k)
 
 
-@pytest.fixture(scope="module")
-def jax_mpc_log(tmp_path_factory):
-    """An MPCData log written by the JAX package's fleet: experiment1, 3 ticks."""
+def _jax_mpc_log(d):
     from boundmpc_tpu.runtime import FleetRunner as JaxFleet, experiment1 as jexp1
-    path = str(tmp_path_factory.mktemp("jmpc") / "mpcdata.bin")
-    f = JaxFleet([jexp1()], mpcdata_path=path)
+    f = JaxFleet([jexp1()], mpcdata_path=str(d / "mpcdata.bin"))
     f.run(ticks=3)
     f.close()
-    return path
+    return read_files(d)
+
+
+@pytest.fixture(scope="module")
+def jax_mpc_log(tmp_path_factory):
+    """An MPCData log written by the JAX package's fleet: experiment1, 3 ticks
+    (built once per run, written in this worker)."""
+    files = shared("test_torch_telemetry.jax_mpc_log",
+                   lambda: _jax_mpc_log(tmp_path_factory.mktemp("jmpc_build")))
+    return str(write_files(tmp_path_factory.mktemp("jmpc"), files) / "mpcdata.bin")
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])

@@ -16,6 +16,7 @@ from jax.experimental import pallas as pl
 
 import boundmpc_tpu.ops.tsqr as jtsqr
 from boundmpc_tpu_torch.ops import tsqr as ttsqr
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 
 def _jax_kernel_interpret(A, b, **kw):

@@ -7,6 +7,7 @@ import torch
 
 from boundmpc_tpu_torch import solver as tsol
 from boundmpc_tpu_torch.experiments import replay_window, soak
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 SCFG = tsol.RUNTIME_F32
 

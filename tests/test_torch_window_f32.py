@@ -33,6 +33,8 @@ from boundmpc_tpu_torch import batch as tbatch, engine as teng, ocp as tocp
 from boundmpc_tpu_torch import solver as tsol
 from boundmpc_tpu_torch.path import PathData
 from boundmpc_tpu_torch.runtime import scenarios as tscen
+from torch_shared import shared
+from torch_shared import one_core_threads  # noqa: F401 (autouse)
 
 LANE = 232
 MAX_ITERS = 8
@@ -91,10 +93,15 @@ def _port_tick(dtype):
     return tick(states, paths, weights, x_phi_d, pref)
 
 
-@pytest.fixture(scope="module")
-def ticks():
+def _ticks():
     return {name: (_jax_tick(jd), _port_tick(td)) for name, jd, td in (
         ("f64", jnp.float64, torch.float64), ("f32", jnp.float32, torch.float32))}
+
+
+@pytest.fixture(scope="module")
+def ticks():
+    """Each package's tick in each precision, built once per run."""
+    return shared("test_torch_window_f32.ticks", _ticks)
 
 
 def test_worst_lane_tick_f64_matches_jax(ticks):
@@ -107,8 +114,8 @@ def test_worst_lane_tick_f64_matches_jax(ticks):
         np.testing.assert_allclose(np.asarray(getattr(out_t.stats, name), np.float64),
                                    np.asarray(getattr(out_j.stats, name), np.float64),
                                    rtol=0, atol=1e-8, err_msg=f"SolveStats.{name}")
-    np.testing.assert_allclose(out_t.u.numpy(), np.asarray(out_j.u), rtol=0, atol=1e-8)
-    np.testing.assert_array_equal(out_t.success.numpy(), np.asarray(out_j.success))
+    np.testing.assert_allclose(out_t.u, np.asarray(out_j.u), rtol=0, atol=1e-8)
+    np.testing.assert_array_equal(out_t.success, np.asarray(out_j.success))
 
 
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
