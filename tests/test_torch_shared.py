@@ -219,6 +219,23 @@ def test_numpy_tree_converts_tensors_and_keeps_containers():
         torch_shared.numpy_tree({"x": object()})
 
 
+def test_session_blas_runs_at_one_thread():
+    """The root ``conftest.py`` holds OpenBLAS at one thread in the test
+    process and, through the environment, in a subprocess started with it
+    as it stands."""
+    from threadpoolctl import threadpool_info
+    assert os.environ["OPENBLAS_NUM_THREADS"] == "1"
+    pools = [p for p in threadpool_info() if p["internal_api"] == "openblas"]
+    assert pools and all(p["num_threads"] == 1 for p in pools), pools
+    child = ("import json, os, numpy\nfrom threadpoolctl import threadpool_info\n"
+             "print(json.dumps([os.environ.get('OPENBLAS_NUM_THREADS'), [p['num_threads'] for p "
+             "in threadpool_info() if p['internal_api'] == 'openblas']]))")
+    out = subprocess.run([sys.executable, "-c", child], env=dict(os.environ), capture_output=True,
+                         text=True, timeout=TIMEOUT, check=True).stdout
+    value, threads = json.loads(out)
+    assert value == "1" and threads and set(threads) == {1}, out
+
+
 def test_one_core_env_keeps_the_test_flags(monkeypatch):
     """One thread for OpenMP, MKL and OpenBLAS; XLA's flags and the rest of
     the environment as the test gives them."""
