@@ -14,7 +14,6 @@ the JAX package: ``SolverConfig()`` for float64, ``RUNTIME_F32`` otherwise.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -23,6 +22,7 @@ import torch
 from torch.func import vmap
 
 from . import batch as batch_mod, engine, jerkint, kinematics, ocp, solver as solver_mod
+from .observability import spans
 from .ops.tsqr import serving_dtype
 from .path import build_path
 from .runtime.runner import _np, lane0, np_float, path_tensors, sync
@@ -149,15 +149,47 @@ class BoundMPC:
 
     def step(self, q0, dq0, ddq0, p0, v0, x_phi_d, jerk_current, x_des=None):
         """One optimization step with the plant state supplied externally;
-        the carried warm start and rotation bookkeeping persist."""
-        st = self._state._replace(
-            q=self._tensor(q0)[None], dq=self._tensor(dq0)[None],
-            ddq=self._tensor(ddq0)[None], jerk=self._tensor(jerk_current)[None])
-        t0 = time.perf_counter()
-        new_state, out = self._tick(st, self.path, self.weights, self._tensor(x_phi_d)[None])
-        sync(self.device)
-        t_comp = time.perf_counter() - t0
+        the carried warm start and rotation bookkeeping persist.
 
+        Appends a ``spans.StepCall``; its spans: ``api.step`` ⊃
+        ``api.step.inputs``, ``tick.call``, ``api.step.sync``,
+        ``api.step.post``."""
+        t_step = spans.now()
+        with spans.request(self.device) as request, spans.span("api.step"):
+            call = spans.StepCall(request, profiled=spans.profiler_on())
+            result = self._step(call, q0, dq0, ddq0, x_phi_d, jerk_current)
+        call.step_ns = spans.now() - t_step
+        if spans.profiler_on():
+            call.profiled = True
+        spans.add(call)
+        return result
+
+    def _step(self, call: spans.StepCall, q0, dq0, ddq0, x_phi_d, jerk_current):
+        with spans.span("api.step.inputs"):
+            st = self._state._replace(
+                q=self._tensor(q0)[None], dq=self._tensor(dq0)[None],
+                ddq=self._tensor(ddq0)[None], jerk=self._tensor(jerk_current)[None])
+        t0 = spans.now()
+        new_state, out = self._tick(st, self.path, self.weights, self._tensor(x_phi_d)[None])
+        tick = spans.last("tick")
+        if tick is not None and tick.request == call.request:
+            call.wait_ns = tick.wait_ns
+            call.profiled |= tick.profiled
+        with spans.span("api.step.sync"):
+            call.read(lambda: sync(self.device))
+        call.tick_ns = spans.now() - t0
+        t_comp = call.tick_ns / 1e9
+        t_post = spans.now()
+        with spans.span("api.step.post"):
+            result = self._post(call, new_state, out, t_comp)
+        call.post_ns = spans.now() - t_post
+        return result
+
+    def _post(self, call: spans.StepCall, new_state, out, t_comp):
+        """Everything after the tick: the carried state, FK, J, dJ, the host
+        copies and the reference's dicts.  The device work is launched
+        before the host copies, behind one synchronise that ``call`` times
+        (two on the logged path)."""
         self._state = new_state
         self.error_count = int(out.error_count[0])
         self.success = bool(out.success[0])
@@ -167,15 +199,17 @@ class BoundMPC:
 
         out = lane0(out)
         traj = out.traj
-        u = _np(out.u)
         # Cartesian trajectory from the joint solution.
         pose_t = vmap(kinematics.fk_pose)(traj.q)
         J = vmap(kinematics.jacobian)(traj.q)
         dJ = vmap(kinematics.djacobian)(traj.q, traj.dq)
+        vel_t = torch.einsum("kij,kj->ki", J, traj.dq)
+        acc_t = (torch.einsum("kij,kj->ki", J, traj.ddq)
+                 + torch.einsum("kij,kj->ki", dJ, traj.dq))
+        call.read(lambda: sync(self.device))
+        u = _np(out.u)
         pose = _np(pose_t).T  # (6, N)
-        vel = _np(torch.einsum("kij,kj->ki", J, traj.dq)).T
-        acc = _np(torch.einsum("kij,kj->ki", J, traj.ddq)
-                  + torch.einsum("kij,kj->ki", dJ, traj.dq)).T
+        vel, acc = _np(vel_t).T, _np(acc_t).T
         traj_data = {
             "p": pose, "v": vel, "a": acc,
             "q": _np(traj.q).T, "dq": _np(traj.dq).T, "ddq": _np(traj.ddq).T,
@@ -189,6 +223,7 @@ class BoundMPC:
             return traj_data, None, None, t_comp, int(out.stats.iters)
 
         ev = ocp.evaluate_stages(self.cfg, self.coeffs, out.params, out.u)
+        call.read(lambda: sync(self.device))
 
         def rows(x):
             return list(_np(x))

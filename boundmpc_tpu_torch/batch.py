@@ -20,6 +20,7 @@ from torch.func import vmap
 
 from . import engine, graphs, jerkint, kinematics, ocp, solver as solver_mod
 from ._tree import tree_map
+from .observability import spans
 from .path import PathData
 
 
@@ -65,7 +66,14 @@ class GraphedTick(graphs.Executor):
     besides the inputs: the presolved state, the StepCtx and the LoopState
     (``buf``), ``flag`` (1,) int32 (whether any lane still iterates) and the
     back half's outputs.  ``capture``: ``graphs.cuda_graphs`` (the card), or
-    ``graphs.direct`` for a test on the CPU."""
+    ``graphs.direct`` for a test on the CPU.
+
+    A call's record is a ``spans.TickCall``; its spans: ``tick.call`` ⊃
+    ``tick.prepare``, ``tick.front``, per loop iteration ``tick.flag`` (the
+    host read) and ``tick.step``, then ``tick.back``, ``tick.out`` (the
+    clones)."""
+
+    record = spans.TickCall
 
     def __init__(self, cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
                  dtype=torch.float32, device="cuda", capture=graphs.cuda_graphs):
@@ -109,15 +117,23 @@ class GraphedTick(graphs.Executor):
         g.out = engine.postsolve_batch(self.cfg, self.scfg, self.coeffs, self.limits, b.state,
                                        g.inp[1], b.ctx.params, u_opt, stats)
 
-    def run(self, g):
-        g.front()
-        n_loop = 0
-        while bool(g.flag):  # the loop's one host read per iteration
-            g.step()
-            n_loop += 1
-        g.back()
-        new_state, out = graphs.tree_clone(g.out)
-        stats = out.stats._replace(n_loop=torch.full_like(out.stats.n_loop, n_loop))
+    def run(self, g, call: spans.TickCall):
+        with spans.span("tick.front"):
+            g.front()
+        while True:
+            on = spans.check(call)
+            with spans.span("tick.flag", on):
+                live = call.read(g.flag.__bool__)  # the loop's one host read per iteration
+            if not live:
+                break
+            with spans.span("tick.step", on):
+                g.step()
+            call.n_loop += 1
+        with spans.span("tick.back"):
+            g.back()
+        with spans.span("tick.out"):
+            new_state, out = graphs.tree_clone(g.out)
+        stats = out.stats._replace(n_loop=torch.full_like(out.stats.n_loop, call.n_loop))
         return new_state, out._replace(stats=stats)
 
 
@@ -130,15 +146,21 @@ def make_batched_tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
     On a CUDA device without ``solve_fn`` this is a ``GraphedTick`` (CUDA
     graphs, the counterpart of the JAX package's jit); on the CPU, and with
     a ``solve_fn`` (the parity oracles, whose solve runs on the host), the
-    eager ``engine.tick``."""
+    eager ``engine.tick``, which records a ``spans.TickCall`` and the spans
+    ``tick.call`` ⊃ ``tick.front``, ``tick.flag``, ``tick.step``,
+    ``tick.back`` around the same calls."""
     if solve_fn is None and torch.device(device).type == "cuda":
         return GraphedTick(cfg, scfg, dtype=dtype, device=device)
     engine.full_f32_matmuls()
     coeffs, limits = _constants(cfg, dtype, device)
 
     def vtick(states, paths, weights, x_phi_d, pref=None):
-        return engine.tick(cfg, scfg, coeffs, limits, states, paths, weights,
-                           x_phi_d, solve_fn, pref)
+        with spans.request(device) as request, spans.span("tick.call"):
+            call = spans.TickCall(request)
+            out = engine.tick(cfg, scfg, coeffs, limits, states, paths, weights,
+                              x_phi_d, solve_fn, pref, call=call)
+        spans.add(call)
+        return out
 
     return vtick
 

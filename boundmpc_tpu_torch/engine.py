@@ -25,6 +25,7 @@ from torch.func import vmap
 from . import jerkint, kinematics, lie, ocp, solver as solver_mod
 from ._tree import tree_map
 from .bounds import segment_bound_coeffs
+from .observability import spans
 from .path import PathData, Window, advance_sector, locate_sector, window
 
 
@@ -422,19 +423,23 @@ def postsolve_batch(cfg, scfg, coeffs, limits, state, path, params, u_opt, stats
 def tick(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
          coeffs: jerkint.JerkCoeffs, limits: kinematics.RobotLimits,
          state: EngineState, path: PathData, weights: torch.Tensor,
-         x_phi_d: torch.Tensor, solve_fn=None, pref=None):
+         x_phi_d: torch.Tensor, solve_fn=None, pref=None, call=None):
     """One full control tick for a BATCH of lanes.  Returns (new_state,
     TickOut), both batched.
 
     ``solve_fn(params, u_warm) -> (u_opt, SolveStats)`` (batched) overrides
     the built-in solver.  ``pref`` (batched solver.QrPrefactor) supplies the
-    setup-time QR factorization of the linear residual block."""
-    state, params, mu0, reg0 = presolve_batch(cfg, scfg, coeffs, limits, state, path,
-                                              weights, x_phi_d)
+    setup-time QR factorization of the linear residual block.  ``call``: the
+    ``spans.TickCall`` that the built-in solver's loop fills; the halves
+    around the solve are the spans ``tick.front`` and ``tick.back``."""
+    with spans.span("tick.front"):
+        state, params, mu0, reg0 = presolve_batch(cfg, scfg, coeffs, limits, state, path,
+                                                  weights, x_phi_d)
     if solve_fn is None:
         u_opt, stats = solver_mod.solve(cfg, scfg, coeffs, params,
                                         state.u_warm, limits, mu0=mu0,
-                                        pref=pref, reg0=reg0)
+                                        pref=pref, reg0=reg0, call=call)
     else:
         u_opt, stats = solve_fn(params, state.u_warm)
-    return postsolve_batch(cfg, scfg, coeffs, limits, state, path, params, u_opt, stats)
+    with spans.span("tick.back"):
+        return postsolve_batch(cfg, scfg, coeffs, limits, state, path, params, u_opt, stats)

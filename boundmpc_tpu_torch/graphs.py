@@ -26,6 +26,7 @@ from typing import Callable, List, Sequence
 import torch
 
 from ._tree import tree_map
+from .observability import spans
 from .ops import tsqr
 
 Body = Callable[[], None]
@@ -130,7 +131,14 @@ class Executor:
     call and kept.  ``capture_seconds`` holds each set's warm-up and capture
     time (host seconds, to the end of its device work).  Under
     ``cuda_graphs`` a set holds no reference back to its executor, so an
-    executor that goes out of use frees its graphs at once."""
+    executor that goes out of use frees its graphs at once.
+
+    Each call appends its call record (a ``record``, the subclass's
+    ``observability.spans`` record class, which ``run`` fills) and runs
+    inside the spans ``<kind>.call`` ⊃ ``<kind>.prepare`` (the input
+    copies, or the capture) and those of ``run``, ``kind`` the record's."""
+
+    record = None
 
     def __init__(self, device, capture: Callable[[Sequence[Body]], List[Body]]):
         self.device = torch.device(device)
@@ -141,7 +149,7 @@ class Executor:
     def new_set(self, inputs) -> GraphSet:
         raise NotImplementedError
 
-    def run(self, g: GraphSet):
+    def run(self, g: GraphSet, call):
         raise NotImplementedError
 
     def prepare(self, *inputs) -> GraphSet:
@@ -162,5 +170,11 @@ class Executor:
     def __call__(self, states, paths, weights, x_phi_d, pref=None):
         ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
                else contextlib.nullcontext())
-        with ctx:
-            return self.run(self.prepare(states, paths, weights, x_phi_d, pref))
+        kind = self.record.kind
+        with ctx, spans.request(self.device) as request, spans.span(f"{kind}.call"):
+            call = self.record(request)
+            with spans.span(f"{kind}.prepare"):
+                g = self.prepare(states, paths, weights, x_phi_d, pref)
+            out = self.run(g, call)
+        spans.add(call)
+        return out

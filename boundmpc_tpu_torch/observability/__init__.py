@@ -1,5 +1,6 @@
-"""Observability: the figure report of a closed-loop log (``report``) and
-horizon-wise rotation-error diagnostics (``horizon``).
+"""Observability: the figure report of a closed-loop log (``report``),
+horizon-wise rotation-error diagnostics (``horizon``) and the executors'
+call records and spans (``spans``, imported by the executors themselves).
 
 The report replaces the reference's Logger -> Plotter pipeline: the npz
 export and figures are rendered to files from logged telemetry.  matplotlib

@@ -20,6 +20,7 @@ from torch.func import vmap
 
 from .. import batch as batch_mod, engine as engine_mod, jerkint, ocp
 from .. import solver as solver_mod, stream as stream_mod
+from ..observability import spans
 from ..ops.tsqr import serving_dtype
 from ..path import PathData
 from .runner import _np, host_tensor, sync
@@ -110,6 +111,9 @@ class FleetRunner:
         self.stream_out: Optional[stream_mod.StreamOut] = None
         # Stream executors by chunk (on the card each holds its CUDA graphs).
         self._stream_fns = {}
+        # Each lane's wait after its last commit of run_stream's last chunk
+        # (spans.lane_tick_ns); run and load_checkpoint drop it.
+        self._lane_waited_ns = None
         self._sink = None
         if telemetry_path is not None:
             from ..native.telemetry import TelemetrySink
@@ -165,6 +169,7 @@ class FleetRunner:
                                    _np(out.stats.viol), _np(out.stats.iters),
                                    _np(out.success), _np(out.error_count))
         self.states = states
+        self._lane_waited_ns = None
         if self._sink is not None:
             self._sink.flush()
         if self._mpc_writer is not None:
@@ -188,7 +193,11 @@ class FleetRunner:
         their own ticks, ``chunk`` ticks per executor call.  Telemetry streams
         per tick from the executor's recorded series between chunks; the
         MPCData horizon stream needs per-tick TickOut payloads and is only
-        available through ``run``."""
+        available through ``run``.  ``tick_ms_*`` are the measured latencies
+        of the live lane-ticks (``spans.lane_tick_ns`` of each chunk's
+        StreamOut; a lane's first tick of a chunk counts its wait at the end
+        of the chunk before, carried across calls).  Spans: ``fleet.chunk`` ⊃ the executor's ``stream.call``,
+        ``fleet.chunk.host`` (the tally after the call)."""
         assert self._mpc_writer is None, \
             "MPCData horizon streaming requires the per-tick executor (run)"
         n_chunks = (ticks + chunk - 1) // chunk
@@ -199,38 +208,42 @@ class FleetRunner:
         states = self.states
         times = []
         succ_sum, succ_n, max_viol, n_loop = 0.0, 0, 0.0, 0
-        iters_all = []
+        lane_ms = []
+        waited = self._lane_waited_ns
         prev_dead = _np(states.dead)
         for ci in range(n_chunks):
-            t0 = time.perf_counter()
-            states, sout = stream_fn(states, self.paths, self.weights, self.x_phi_d,
-                                     self._pref)
-            sync(self.device)
-            times.append(time.perf_counter() - t0)
-            self.stream_out = sout
-            succ, viol, iters = _np(sout.success), _np(sout.viol), _np(sout.iters)
-            # Live: lane-ticks before and including the death tick.
-            dead = _np(sout.dead)
-            live = ~np.concatenate([prev_dead[None, :], dead[:-1]], axis=0)
-            prev_dead = dead[-1]
-            succ_sum += float(succ[live].sum())
-            succ_n += int(live.sum())
-            if live.any():
-                max_viol = max(max_viol, float(viol[live].max()))
-            n_loop += int(sout.n_loop)
-            iters_all.append(iters)
-            if self._sink is not None:
-                phi, dphi, errc = _np(sout.phi), _np(sout.dphi), _np(sout.error_count)
-                for k in range(succ.shape[0]):
-                    self._push_records(ci * chunk + k, phi[k], dphi[k], viol[k], iters[k],
-                                       succ[k], errc[k])
+            with spans.request(self.device), spans.span("fleet.chunk"):
+                t0 = time.perf_counter()
+                states, sout = stream_fn(states, self.paths, self.weights, self.x_phi_d,
+                                         self._pref)
+                sync(self.device)
+                times.append(time.perf_counter() - t0)
+                with spans.span("fleet.chunk.host"):
+                    self.stream_out = sout
+                    succ, viol, iters = _np(sout.success), _np(sout.viol), _np(sout.iters)
+                    # Live: lane-ticks before and including the death tick.
+                    dead = _np(sout.dead)
+                    live = ~np.concatenate([prev_dead[None, :], dead[:-1]], axis=0)
+                    prev_dead = dead[-1]
+                    succ_sum += float(succ[live].sum())
+                    succ_n += int(live.sum())
+                    if live.any():
+                        max_viol = max(max_viol, float(viol[live].max()))
+                    n_loop += int(sout.n_loop)
+                    lat, waited = spans.lane_tick_ns(sout, waited, _np(sout.commit_loop))
+                    lane_ms.append(1e-6 * lat[live])
+                    if self._sink is not None:
+                        phi, dphi, errc = _np(sout.phi), _np(sout.dphi), _np(sout.error_count)
+                        for k in range(succ.shape[0]):
+                            self._push_records(ci * chunk + k, phi[k], dphi[k], viol[k],
+                                               iters[k], succ[k], errc[k])
         self.states = states
+        self._lane_waited_ns = waited
         if self._sink is not None:
             self._sink.flush()
-        iters_all = np.concatenate(iters_all)
-        # A lane's tick spans its own GN iterations, each one loop iteration.
-        loop_iter_s = float(np.sum(times)) / max(n_loop, 1)
-        lane_ms = iters_all.astype(np.float64) * loop_iter_s * 1e3
+        lane_ms = np.concatenate(lane_ms)
+        if lane_ms.size == 0:  # no live lane-tick
+            lane_ms = np.full(1, np.nan)
         total = float(np.sum(times))
         return FleetStats(
             ticks=n_chunks * chunk, batch=self.B,
@@ -251,6 +264,7 @@ class FleetRunner:
 
     def load_checkpoint(self, path: str):
         self.states = engine_mod.load_state_dump(self.states, np.load(path))
+        self._lane_waited_ns = None
 
     def close(self):
         if self._sink is not None:

@@ -25,6 +25,7 @@ from torch.func import jvp, vmap
 from . import jacobian as jmod
 from . import jerkint, kinematics, ocp
 from ._tree import tree_where
+from .observability import spans
 from .ops import tsqr
 
 
@@ -642,7 +643,7 @@ def finish_batch(cfg: ocp.OcpConfig, coeffs: jerkint.JerkCoeffs, params: ocp.Ocp
 def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
           params: ocp.OcpParams, u0: torch.Tensor,
           limits: kinematics.RobotLimits, mu0=None,
-          pref: QrPrefactor | None = None, reg0=None):
+          pref: QrPrefactor | None = None, reg0=None, call=None):
     """Minimize the condensed OCP for a BATCH of lanes from warm starts
     ``u0`` (B, N, 8).  Returns (u_opt (B, N, 8), SolveStats batched).
 
@@ -653,17 +654,23 @@ def solve(cfg: ocp.OcpConfig, scfg: SolverConfig, coeffs: jerkint.JerkCoeffs,
     ``stats.n_loop`` holds the number of loop iterations run, which is the
     number of ls_solve launches.  This is the eager loop, two host reads per
     iteration; on the card the lockstep tick replays it as CUDA graphs
-    (``batch.GraphedTick``)."""
+    (``batch.GraphedTick``).  ``call``: a ``spans.TickCall`` to fill (loop
+    iterations, the flag reads' wait); the loop's spans are ``tick.flag``
+    and ``tick.step``."""
     dtype = u0.dtype
     ctx = make_ctx_batch(cfg, coeffs, params, pref, dtype)
     step = make_stepper(cfg, scfg, coeffs, limits, dtype)
     st = init_loop_batch(scfg, u0, mu0, reg0)
-    n_loop = 0
+    call = call if call is not None else spans.TickCall(-1)
     while True:
+        on = spans.check(call)
         live = loop_live(scfg, st)
-        if not bool(live.any()):
+        with spans.span("tick.flag", on):
+            go_on = call.read(live.any().__bool__)
+        if not go_on:
             break
-        st = masked_step(step, st, ctx, live)
-        n_loop += 1
+        with spans.span("tick.step", on):
+            st = masked_step(step, st, ctx, live)
+        call.n_loop += 1
     u_opt, stats = finish_batch(cfg, coeffs, params, limits, st)
-    return u_opt, stats._replace(n_loop=torch.full_like(stats.n_loop, n_loop))
+    return u_opt, stats._replace(n_loop=torch.full_like(stats.n_loop, call.n_loop))

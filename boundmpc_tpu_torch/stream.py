@@ -21,11 +21,13 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.func import vmap
 
 from . import engine, graphs, jerkint, kinematics, ocp, solver as solver_mod
 from ._tree import tree_where
+from .observability import spans
 from .path import PathData
 
 
@@ -45,6 +47,14 @@ class StreamOut(NamedTuple):
     # (K, B) int32 why each tick's solve ended (solver.EXIT_REASONS); not in
     # the JAX package.
     exit_reason: torch.Tensor | None = None
+    # (K, B) int32 the loop iteration (from 0) whose commit phase committed
+    # each tick; not in the JAX package.
+    commit_loop: torch.Tensor | None = None
+    # The call's host clock (time.perf_counter_ns), not in the JAX package:
+    # when its loop was set up, and (n_loop,) int64 when each loop
+    # iteration's flag read returned (observability.spans.lane_tick_ns).
+    start_ns: int | None = None
+    read_ns: np.ndarray | None = None
 
 
 class StreamCarry(NamedTuple):
@@ -61,6 +71,7 @@ class StreamCarry(NamedTuple):
     errc: torch.Tensor  # (B, K) int32
     dead: torch.Tensor  # (B, K)
     exit: torch.Tensor  # (B, K) int32
+    loop: torch.Tensor  # (B, K) int32
 
 
 class _Records(NamedTuple):
@@ -74,6 +85,7 @@ class _Records(NamedTuple):
     errc: torch.Tensor  # int32
     dead: torch.Tensor  # bool
     exit: torch.Tensor  # int32 solver.exit_reason
+    loop: torch.Tensor  # int32 the committing loop iteration
 
 
 class _Stream:
@@ -125,7 +137,7 @@ class _Stream:
 
         return _Records(zeros(torch.bool), zeros(self.dtype), zeros(torch.int32),
                         zeros(self.dtype), zeros(self.dtype), zeros(torch.int32),
-                        zeros(torch.bool), zeros(torch.int32))
+                        zeros(torch.bool), zeros(torch.int32), zeros(torch.int32))
 
     def advance(self, t, ls, ctx):
         """One loop iteration's GN step of the lanes still solving: (ls',
@@ -143,10 +155,12 @@ class _Stream:
         return ls, solve_done, commit_now
 
     def commit(self, states, paths, weights, x_phi_d, pref, ls, ctx, t, solve_done,
-               rec: _Records):
+               rec: _Records, loop):
         """The commit phase: finished lanes commit their tick and set up the
-        next one.  Writes tick t of each finished lane into ``rec`` IN PLACE
-        and returns (states, ls, ctx, t) after the commit."""
+        next one.  Writes tick t of each finished lane into ``rec`` IN PLACE,
+        ``loop`` (this loop iteration's index, an int or a 0-d int32 tensor)
+        as its committing iteration, and returns (states, ls, ctx, t) after
+        the commit."""
         (st2, ctx2, ls2, succ1, viol1, iters1, phi1, dphi1, errc1,
          dead1) = self.v_commit(states, paths, weights, x_phi_d, pref.R0, pref.Q0T, ls, ctx)
         # Record tick t of each finished lane.  A lane with t == K is never
@@ -155,15 +169,16 @@ class _Stream:
         lanes = torch.arange(t.shape[0], device=t.device)
         t_idx = torch.clamp(t, max=self.K - 1).long()
         exit1 = solver_mod.exit_reason(self.scfg, ls)
-        for arr, v in zip(rec, (succ1, viol1, iters1, phi1, dphi1, errc1, dead1, exit1)):
+        for arr, v in zip(rec, (succ1, viol1, iters1, phi1, dphi1, errc1, dead1, exit1, loop)):
             arr[lanes, t_idx] = torch.where(solve_done, v, arr[lanes, t_idx])
         return (tree_where(solve_done, st2, states), tree_where(solve_done, ls2, ls),
                 tree_where(solve_done, ctx2, ctx), torch.where(solve_done, t + 1, t))
 
-    def out(self, rec: _Records, n_loop: int) -> StreamOut:
+    def out(self, rec: _Records, start_ns: int, read_ns: np.ndarray) -> StreamOut:
         return StreamOut(success=rec.succ.T, viol=rec.viol.T, iters=rec.iters.T,
                          phi=rec.phi.T, dphi=rec.dphi.T, error_count=rec.errc.T,
-                         dead=rec.dead.T, n_loop=n_loop, exit_reason=rec.exit.T)
+                         dead=rec.dead.T, n_loop=len(read_ns), exit_reason=rec.exit.T,
+                         commit_loop=rec.loop.T, start_ns=start_ns, read_ns=read_ns)
 
 
 def make_stream_fn(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
@@ -174,7 +189,10 @@ def make_stream_fn(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
     (states', StreamOut).  ``pref`` (batched QrPrefactor) is required.
     ``cohort``: minimum number of finished lanes that triggers the commit
     phase; None -> max(1, B // 16).  The constants live on ``device`` (the
-    card unless the caller asks for the CPU); the fleet's tensors must too."""
+    card unless the caller asks for the CPU); the fleet's tensors must too.
+    Each call appends a ``spans.StreamCall`` and records the spans of
+    ``GraphedStream`` (without ``stream.prepare``) around the same calls;
+    its flag read is ``bool(commit_now)``."""
     parts = _Stream(cfg, scfg, n_ticks, dtype, device, cohort)
     K = n_ticks
 
@@ -183,21 +201,35 @@ def make_stream_fn(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig,
                pref: solver_mod.QrPrefactor):
         B = states.phi.shape[0]
         dev = states.phi.device
-        states0, ctx0, ls0 = parts.start(states, paths, weights, x_phi_d, pref)
-        rec = parts.records(B, dev)  # written in place by the commits
-        c = StreamCarry(states=states0, ls=ls0, ctx=ctx0,
-                        t=torch.zeros(B, dtype=torch.int32, device=dev), i=0,
-                        **rec._asdict())
+        with spans.request(dev) as request, spans.span("stream.call"):
+            call, start_ns, reads = spans.StreamCall(request), spans.now(), []
+            with spans.span("stream.start"):
+                states0, ctx0, ls0 = parts.start(states, paths, weights, x_phi_d, pref)
+                rec = parts.records(B, dev)  # written in place by the commits
+            c = StreamCarry(states=states0, ls=ls0, ctx=ctx0,
+                            t=torch.zeros(B, dtype=torch.int32, device=dev), i=0,
+                            **rec._asdict())
 
-        while bool((c.t < K).any()):
-            ls, solve_done, commit_now = parts.advance(c.t, c.ls, c.ctx)
-            if bool(commit_now):
-                st, ls, ctx, t = parts.commit(c.states, paths, weights, x_phi_d, pref, ls,
-                                              c.ctx, c.t, solve_done, rec)
-                c = c._replace(states=st, ctx=ctx, t=t)
-            c = c._replace(ls=ls, i=c.i + 1)
-
-        return c.states, parts.out(rec, c.i)
+            t_loop = spans.now()
+            while bool((c.t < K).any()):
+                on = spans.check(call)
+                with spans.span("stream.advance", on):
+                    ls, solve_done, commit_now = parts.advance(c.t, c.ls, c.ctx)
+                with spans.span("stream.flag", on):
+                    commit = call.read(commit_now.__bool__, reads)
+                if commit:
+                    with spans.span("stream.commit", on, device=True):
+                        st, ls, ctx, t = parts.commit(c.states, paths, weights, x_phi_d, pref,
+                                                      ls, c.ctx, c.t, solve_done, rec, c.i)
+                    c = c._replace(states=st, ctx=ctx, t=t)
+                    call.n_commit += 1
+                c = c._replace(ls=ls, i=c.i + 1)
+            read_ns = call.end_loop(t_loop, reads)
+            with spans.span("stream.out"):
+                out = parts.out(rec, start_ns, read_ns)
+            call.out = out
+        spans.add(call)
+        return c.states, out
 
     return stream
 
@@ -214,9 +246,19 @@ class GraphedStream(graphs.Executor):
     returns clones of the final states and records.  A set's buffers
     (``graphs.GraphSet``) besides the inputs: the carried states, StepCtx,
     LoopState, ticks committed ``t`` and ``solve_done`` (``buf``), the
-    records (B, K) and ``flags`` (2,) int32: [commit now, go on after this
-    iteration].  ``capture``: ``graphs.cuda_graphs`` (the card), or
-    ``graphs.direct`` for a test on the CPU."""
+    records (B, K), ``flags`` (2,) int32: [commit now, go on after this
+    iteration], and ``loop`` () int32, the loop iteration's index, which
+    the GN step advances and the commit phase records.  ``capture``:
+    ``graphs.cuda_graphs`` (the card), or ``graphs.direct`` for a test on
+    the CPU.
+
+    A call's record is a ``spans.StreamCall``; its spans: ``stream.call`` ⊃
+    ``stream.prepare``, ``stream.start``, per loop iteration
+    ``stream.advance`` (the GN step's replay) and ``stream.flag`` (the host
+    read), ``stream.commit`` (the commit phase's replay, with a device
+    interval), ``stream.out`` (the clones)."""
+
+    record = spans.StreamCall
 
     def __init__(self, cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig, n_ticks: int,
                  dtype=torch.float32, device="cuda", cohort: int | None = None,
@@ -229,6 +271,7 @@ class GraphedStream(graphs.Executor):
         dev = inputs[0].phi.device
         g.rec = self.parts.records(inputs[0].phi.shape[0], dev)
         g.flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        g.loop = torch.zeros((), dtype=torch.int32, device=dev)
         g.start, g.advance, g.commit = self.capture(
             [functools.partial(body, g) for body in (self._start, self._advance, self._commit)])
         return g
@@ -239,11 +282,13 @@ class GraphedStream(graphs.Executor):
         g.buf.put("ctx", ctx)
         g.buf.put("ls", ls)
         g.buf.put("t", torch.zeros_like(st.phi, dtype=torch.int32))
+        g.loop.fill_(-1)
         for arr in g.rec:
             arr.zero_()
 
     def _advance(self, g):
         b, K = g.buf, self.parts.K
+        g.loop.add_(1)
         ls, solve_done, commit_now = self.parts.advance(b.t, b.ls, b.ctx)
         b.put("ls", ls)
         b.put("solve_done", solve_done)
@@ -255,22 +300,33 @@ class GraphedStream(graphs.Executor):
     def _commit(self, g):
         b = g.buf
         st, ls, ctx, t = self.parts.commit(b.states, *g.inp[1:], b.ls, b.ctx, b.t,
-                                           b.solve_done, g.rec)
+                                           b.solve_done, g.rec, g.loop)
         b.put("states", st)
         b.put("ls", ls)
         b.put("ctx", ctx)
         b.put("t", t)
 
-    def run(self, g):
-        g.start()
-        n_loop, go_on = 0, self.parts.K > 0
+    def run(self, g, call: spans.StreamCall):
+        start_ns, reads = spans.now(), []
+        with spans.span("stream.start"):
+            g.start()
+        go_on = self.parts.K > 0
+        t_loop = spans.now()
         while go_on:
-            g.advance()
-            commit_now, go_on = g.flags.tolist()  # one host read per iteration
+            on = spans.check(call)
+            with spans.span("stream.advance", on):
+                g.advance()
+            with spans.span("stream.flag", on):
+                commit_now, go_on = call.read(g.flags.tolist, reads)  # one host read per iteration
             if commit_now:
-                g.commit()
-            n_loop += 1
-        return graphs.tree_clone(g.buf.states), self.parts.out(graphs.tree_clone(g.rec), n_loop)
+                with spans.span("stream.commit", on, device=True):
+                    g.commit()
+                call.n_commit += 1
+        read_ns = call.end_loop(t_loop, reads)
+        with spans.span("stream.out"):
+            states = graphs.tree_clone(g.buf.states)
+            call.out = self.parts.out(graphs.tree_clone(g.rec), start_ns, read_ns)
+        return states, call.out
 
 
 def make_stream_ticks(cfg: ocp.OcpConfig, scfg: solver_mod.SolverConfig, n_ticks: int,

@@ -418,7 +418,7 @@ def phase_stream_graphs(torch, cfg, scfg, stream_mod, batch, build_fleet, tsqr):
     st_e, so_e, _, _ = runs["eager"]
     for name, (st, so, wall, launches) in runs.items():
         bad = [] if name == "eager" else (
-            _differs(st, st_e) + _differs(so._replace(n_loop=None), so_e._replace(n_loop=None)))
+            _differs(st, st_e) + _differs(_series(so), _series(so_e)))
         log(f"stream graphs: {name} B={B_MAIN} {GRAPH_TICKS} ticks: n_loop {so.n_loop}, "
             f"launches {launches}, {wall:.2f} s, {1e3 * wall / so.n_loop:.2f} ms per loop "
             f"iteration" + ("" if name == "eager" else
@@ -718,6 +718,11 @@ def _flat(tree):
     return out
 
 
+def _series(so):
+    """A StreamOut's device series, without its loop count and host clock."""
+    return so._replace(n_loop=None, start_ns=None, read_ns=None)
+
+
 def _differs(a, b):
     """Names of the leaves of two trees that differ (NaN matches NaN)."""
     fa, fb = _flat(a), _flat(b)
@@ -779,7 +784,7 @@ def phase_sharded(torch, distributed, batch, stream_mod, build_fleet, cfg, scfg,
                    "mean_phi": float(st_q.phi.mean())}
     bad = {"tick state": _differs(st_t, st_p), "tick outputs": _differs(out_t, out_p),
            "stream state": _differs(st_s, st_q),
-           "stream series": _differs(so_s._replace(n_loop=None), so_q._replace(n_loop=None))}
+           "stream series": _differs(_series(so_s), _series(so_q))}
     log(f"sharded engine: reduced metrics tick {m_tick}, stream {m_stream}; kernel launches "
         f"{launches}; bit for bit against the unsharded executors: "
         + ", ".join(f"{k} {'equal' if not v else 'differs in ' + str(v)}" for k, v in bad.items()))

@@ -103,7 +103,9 @@ st, out_t, m_tick = eng.tick(states, paths, weights, x_phi_d)
 res.update({"tick." + k: v for k, v in convert.to_numpy(st).items()})
 st, so, m_stream = eng.stream(states, paths, weights, x_phi_d, pref, K)
 res.update({"stream." + k: v for k, v in convert.to_numpy(st).items()})
-res.update({"series." + k: v for k, v in convert.to_numpy(so).items() if k != "n_loop"})
+# The series without the loop count and the call's host clock (start_ns, read_ns).
+CLOCK = ("n_loop", "start_ns", "read_ns")
+res.update({"series." + k: v for k, v in convert.to_numpy(so).items() if k not in CLOCK})
 pf = eng.prefactor(paths, weights, x_phi_d)
 n = pf.R0.shape[0]
 pf_all = batch.make_prefactor_batch(cfg, *fleet[1:4], dtype=torch.float64)
@@ -121,7 +123,8 @@ if mode != "env":
     live = ~torch.cat([fleet[0].dead[None], o2.dead[:-1]], dim=0)
     res.update({"plain_tick." + k: v for k, v in convert.to_numpy(s1).items()})
     res.update({"plain_stream." + k: v for k, v in convert.to_numpy(s2).items()})
-    res.update({"plain_series." + k: v for k, v in convert.to_numpy(o2).items() if k != "n_loop"})
+    res.update({"plain_series." + k: v for k, v in convert.to_numpy(o2).items()
+                if k not in CLOCK})
     plain = {"tick": {"n_success": int(o1.success.sum()), "n_dead": int(s1.dead.sum()),
                       "total_iters": int(o1.stats.iters.sum()),
                       "n_loop": int(o1.stats.n_loop[0]), "max_viol": float(o1.stats.viol.max()),

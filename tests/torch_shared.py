@@ -34,6 +34,7 @@ threads spin for a while after each call, and six workers of eight threads
 each on eight cores spend much of the machine on that.
 """
 import atexit
+import contextlib
 import copy
 import dataclasses
 import fcntl
@@ -156,15 +157,22 @@ def shared(name, build):
         return pickle.loads(path.read_bytes())
 
 
+def _blas_at_one_thread():
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:  # absent beside the card, where the `cuda` tests run alone
+        return contextlib.nullcontext()
+    return threadpool_limits(limits=1)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_core_threads():
     """torch, OpenMP and OpenBLAS at one thread for one test module."""
     import torch
-    from threadpoolctl import threadpool_limits
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        with threadpool_limits(limits=1):
+        with _blas_at_one_thread():
             yield
     finally:
         torch.set_num_threads(n)
